@@ -7,11 +7,20 @@ Phases, each failing loudly (an assertion or an exception ends the run
 with a non-zero exit and no result line):
 
 1. card: the card's name and power limit, from nvidia-smi;
-2. build: nvcc builds the bag kernels from ``src/repro_torch/kernels/csrc``;
+2. build: nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all started together) and prints each kernel's
+   registers and spills;
 3. kernels: both CUDA bag kernels against their plain PyTorch version on
    the card over the kernel test grid (D=13, P=1, padded bags, shuffled
-   shard offsets, fp32 and bf16): fp32 bitwise, bf16 within 0.1 (the
-   reference's tolerance);
+   shard offsets, rows past the shard's end, fp32 and bf16): fp32
+   bitwise, bf16 within 0.1 (the reference's tolerance); the attention
+   kernels against theirs at the shapes and tolerances of
+   ``repro_torch.kernels.cases`` (shared with the card tests): flash
+   attention causal and not, G in {1, 3}, D in {32, 64, 128}, ragged S
+   and T, and smollm-135m's full-width prefill shape (fp32 within 2e-5,
+   bf16 within two bf16 steps of each element), flash decode with pos in
+   the first, a middle and the last block, kv_offset > 0 and a slice
+   wholly after pos (1e-4 on o and l, 1e-5 on m);
 4. serve: RM1 V0 at its published widths, only ``rows_per_table`` cut
    (3,417,969 -> 40,000, so the embedding bank fits one card), through
    ``run_scenario`` on the CLI's cluster (2 CNs, 4 MNs as
@@ -27,7 +36,20 @@ with a non-zero exit and no result line):
    device's busy time per batch, its idle share of the untraced serve's
    wall time, and the top kernels and host ops;
 7. single unit: ``DLRMServingEngine(use_kernel=True)`` over the whole
-   (800, 40000, 128) bank, which needs 64-bit row addresses.
+   (800, 40000, 128) bank, which needs 64-bit row addresses;
+8. lm: smollm-135m at its published widths, nothing cut (30 layers,
+   d 576, 9 heads over 3 kv heads, head_dim 64, d_ff 1536, vocab 49152,
+   tied, bf16), through ``LMServingEngine.generate``: batch 8, a
+   1024-token seeded prompt, a 2048-slot cache, 64 decode steps.  The
+   counters are zeroed just before and read just after: exactly 30
+   flash-attention and 30 x 64 flash-decode launches.  Prefill ms,
+   decode ms per token, tokens/s and peak memory are printed; each
+   kernel is held against its plain version at the inputs of the first
+   prefill (and at fp32 copies of them) and of the last decode launch,
+   and timed there beside its bound,
+   its plain version and ``scaled_dot_product_attention``; an fp32 copy
+   of the model generates the same tokens through the kernels as
+   through their plain versions.
 
 All timing lives here, never in ``src/`` (the repo's linter bans host
 clocks there).  The line before the last is ``{"kernels": [...]}``; the
@@ -51,15 +73,22 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 ROWS = 40_000                  # rows_per_table cut so the bank fits
 SCORE_ATOL = 1e-5              # cluster scores vs the one-reduction path
 BF16_TOL = 0.1                 # the reference's bf16 tolerance
-GRID = [(1, 64, 8, 4, 4), (4, 100, 16, 8, 10), (3, 257, 32, 5, 7),
-        (2, 128, 128, 16, 20), (3, 96, 13, 6, 5), (2, 50, 8, 5, 1)]
 KERNELS = {
     "embedding_bag_fused_flat": "src/repro/kernels/embedding_bag.py:88",
     "embedding_bag_nmp_flat": "src/repro/kernels/embedding_bag.py:157",
 }
+LM_KERNELS = {
+    "flash_attention": ("src/repro/kernels/flash_attention.py:63",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "flash_decode_partial": ("src/repro/kernels/flash_decode.py:61",
+                             "src/repro_torch/kernels/csrc/flash_decode.cu"),
+}
+SOURCES = ["embedding_bag", "flash_attention", "flash_decode"]
+LM_BATCH, LM_PROMPT, LM_CACHE, LM_STEPS = 8, 1024, 2048, 64
 
 
 def log(msg: str) -> None:
@@ -83,10 +112,10 @@ def mixed_idx(rng, R, B, T, P):
 
 
 def check_grid(dev) -> None:
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import cases, ops
     from repro_torch.kernels.embedding_bag import embedding_bag_flat_plain
     n = 0
-    for (T, R, D, B, P) in GRID:
+    for (T, R, D, B, P) in cases.BAG_GRID:
         for dtype in (torch.float32, torch.bfloat16):
             rng = np.random.RandomState(T * 1000 + D)
             flat = torch.from_numpy(
@@ -104,8 +133,68 @@ def check_grid(dev) -> None:
                     err = float((got - want).abs().max())
                     assert err <= BF16_TOL, (name, T, R, D, B, P, err)
                 n += 1
-    log(f"[kernels] {n} grid cases on the card: fp32 bitwise equal to the "
-        f"plain version, bf16 within {BF16_TOL}")
+    flat = torch.arange(40, dtype=torch.float32, device=dev).reshape(10, 4)
+    offsets = torch.tensor([0, 5], dtype=torch.int32, device=dev)
+    idx = torch.tensor([[[1, 7, -1], [2, 9, -1]]], dtype=torch.int32,
+                       device=dev)
+    want = torch.tensor([[[32., 34, 36, 38], [64, 66, 68, 70]]], device=dev)
+    assert torch.equal(embedding_bag_flat_plain(flat, offsets, idx), want)
+    for name in KERNELS:
+        got = getattr(ops, name)(flat, offsets, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (name, got)
+        n += 1
+    log(f"[kernels] {n} bag cases on the card (rows past the shard's end "
+        f"read its last row, as in the reference): fp32 bitwise equal to "
+        f"the plain version, bf16 within {BF16_TOL}")
+
+
+def check_attention_grid(dev) -> None:
+    from repro_torch.kernels import cases, ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    n, worst = 0, 0.0
+    for (B, H, Hkv, S, T, D) in cases.ATTN_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                rng = np.random.RandomState(S + T + D)
+                q = cases.randn(rng, (B, H, S, D), dev, dtype)
+                k = cases.randn(rng, (B, Hkv, T, D), dev, dtype)
+                v = cases.randn(rng, (B, Hkv, T, D), dev, dtype)
+                got = ops.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                want = flash_attention_plain(q, k, v, causal=causal)
+                atol, rtol = cases.ATTN_TOL[dtype]
+                torch.testing.assert_close(
+                    got.float(), want.float(), atol=atol, rtol=rtol,
+                    msg=f"flash_attention {(B, H, Hkv, S, T, D)} {dtype} "
+                        f"causal={causal}")
+                worst = max(worst, float((got.float() - want.float()).abs()
+                                         .max()))
+                n += 1
+    for (B, H, Hkv, T, D, pos, off) in cases.DECODE_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.RandomState(T + D + pos)
+            q = cases.randn(rng, (B, H, D), dev, dtype)
+            kc = cases.randn(rng, (B, T, Hkv, D), dev, dtype)
+            vc = cases.randn(rng, (B, T, Hkv, D), dev, dtype)
+            pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+            got = ops.flash_decode_partial(q, kc, vc, pos_t, kv_offset=off)
+            torch.cuda.synchronize()
+            want = flash_decode_plain(q, kc, vc, pos_t, kv_offset=off)
+            for g, w, tol in zip(got, want, cases.DECODE_TOL):
+                torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+            if off > pos:
+                o, l, m = got
+                assert not o.any() and not l.any()
+                assert bool((m == -1e30).all())
+            n += 1
+    log(f"[kernels] {n} attention cases on the card: flash_attention "
+        f"within (atol, rtol) {cases.ATTN_TOL[torch.float32]} (fp32) and "
+        f"{cases.ATTN_TOL[torch.bfloat16]} (bf16) of the plain version "
+        f"(worst {worst:.3g}), flash_decode_partial within "
+        f"{cases.DECODE_TOL} on "
+        f"(o, l, m); a slice wholly after pos gives m = -1e30, l = o = 0")
 
 
 def median_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -228,7 +317,8 @@ class MainPathProbe:
 
 
 def profile_summary(prof, traced_s: float, wall_s: float, batches: int,
-                    card: str) -> None:
+                    card: str, what: str = "serve", unit: str = "batch"
+                    ) -> None:
     """Device busy time of a traced serve against the untraced serve's
     wall time ``wall_s`` (tracing slows the host many times over, the
     device work not at all), and the kernels and host ops that take the
@@ -241,9 +331,9 @@ def profile_summary(prof, traced_s: float, wall_s: float, batches: int,
               and not getattr(e, "is_user_annotation", False)]
     host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    log(f"[profile] traced serve of {batches} batches: device busy "
-        f"{busy_ms:.3f} ms = {busy_ms / batches:.3f} ms/batch; idle share "
-        f"{1 - busy_ms / (wall_s * 1e3):.4f} of the untraced serve's "
+    log(f"[profile] traced {what}, {batches} x {unit}: device busy "
+        f"{busy_ms:.3f} ms = {busy_ms / batches:.3f} ms/{unit}; idle share "
+        f"{1 - busy_ms / (wall_s * 1e3):.4f} of the untraced {what}'s "
         f"{wall_s * 1e3:.1f} ms (traced wall {traced_s * 1e3:.1f} ms); "
         f"{card}")
     for label, evs, key in (
@@ -252,6 +342,318 @@ def profile_summary(prof, traced_s: float, wall_s: float, batches: int,
         top = sorted(evs, key=key, reverse=True)[:8]
         log(f"[profile] top {label} (ms): " + "; ".join(
             f"{e.key[:60]} {key(e) / 1e3:.3f} x{e.count}" for e in top))
+
+
+class LMProbe:
+    """Keeps the inputs of the first prefill flash-attention launch and
+    of the last flash-decode launch (references, no copies: the last
+    launch's cache slice is never written again), and times the prefill
+    against the whole ``generate`` with host clocks around syncs."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models.transformer import DecoderLM
+        self.ops, self.cls = ops, DecoderLM
+        self.orig = (ops.flash_attention, ops.flash_decode_partial,
+                     DecoderLM.prefill)
+        self.first_attn = None
+        self.last_decode = None
+        self.prefill_s = 0.0
+
+    def __enter__(self):
+        probe = self
+        attn, decode, prefill = self.orig
+
+        def flash_attention(q, k, v, **kw):
+            if probe.first_attn is None:
+                probe.first_attn = (q, k, v, kw)
+            return attn(q, k, v, **kw)
+
+        def flash_decode_partial(q, kc, vc, pos, **kw):
+            probe.last_decode = (q, kc, vc, pos, kw)
+            return decode(q, kc, vc, pos, **kw)
+
+        def timed_prefill(model, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = prefill(model, *a, **kw)
+            torch.cuda.synchronize()
+            probe.prefill_s += time.perf_counter() - t0
+            return out
+
+        self.ops.flash_attention = flash_attention
+        self.ops.flash_decode_partial = flash_decode_partial
+        self.cls.prefill = timed_prefill
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops.flash_attention, self.ops.flash_decode_partial,
+         self.cls.prefill) = self.orig
+        return False
+
+
+class PlainAttention:
+    """Routes the model's attention through the kernels' plain versions
+    on the card, to hold the kernel path against it (never used by the
+    port itself)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_decode as fd
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.orig = (ops.flash_attention, ops.flash_decode_partial)
+        ops.flash_attention = fa.flash_attention_plain
+        ops.flash_decode_partial = fd.flash_decode_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.ops.flash_decode_partial = self.orig
+        return False
+
+
+def _sdpa(q, k, v, causal):
+    """``scaled_dot_product_attention`` with GQA, the library yardstick."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True)
+
+
+def kernel_row(name, ms, plain_ms, library_ms, err, launches, nbytes, flops,
+               ops_per_s):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / ops_per_s * 1e3
+    return {"name": name, "route": "cuda", "source": LM_KERNELS[name][1],
+            "replaces": LM_KERNELS[name][0], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms}
+
+
+def time_attention(q, k, v, kw, launches, card):
+    """flash_attention at the first prefill launch's inputs, and on fp32
+    copies of them (same shapes and strides), each against its plain
+    version: bf16 within two bf16 steps of each element, fp32 within
+    2e-5 (``repro_torch.kernels.cases``)."""
+    from repro_torch.kernels import cases, ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    causal = kw.get("causal", True)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    assert [t.stride() for t in (q32, k32, v32)] == \
+        [t.stride() for t in (q, k, v)]
+    out32 = ops.flash_attention(q32, k32, v32, causal=causal)
+    plain32 = flash_attention_plain(q32, k32, v32, **kw)
+    atol, rtol = cases.ATTN_TOL[torch.float32]
+    torch.testing.assert_close(out32, plain32, atol=atol, rtol=rtol)
+    err32 = float((out32 - plain32).abs().max())
+    del q32, k32, v32, out32, plain32
+    out = ops.flash_attention(q, k, v, causal=causal)
+    plain = flash_attention_plain(q, k, v, **kw)
+    atol, rtol = cases.ATTN_TOL[q.dtype]
+    torch.testing.assert_close(out.float(), plain.float(), atol=atol,
+                               rtol=rtol)
+    err = float((out.float() - plain.float()).abs().max())
+    lib_err = float((_sdpa(q, k, v, causal).float() - out.float()).abs()
+                    .max())
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    pairs = (sum(min(i + 1, T) for i in range(S)) if causal else S * T)
+    flops = 4 * B * H * D * pairs
+    nbytes = (2 * B * H * S * D + 2 * B * Hkv * T * D) * q.element_size()
+    ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                   iters=50)
+    plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                         iters=5, warmup=1)
+    library_ms = median_ms(lambda: _sdpa(q, k, v, causal), iters=50)
+    ops_per_s = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else \
+        FP32_OPS_PER_S
+    row = kernel_row("flash_attention", ms, plain_ms, library_ms, err,
+                     launches, nbytes, flops, ops_per_s)
+    row["fp32_max_abs_err"] = err32     # the same inputs widened to fp32
+    log("[timing] " + json.dumps(dict(
+        row, shape={"B": B, "H": H, "Hkv": Hkv, "S": S, "T": T, "D": D,
+                    "causal": causal, "dtype": str(q.dtype)},
+        bytes=nbytes, flops=flops, library_max_abs_err=lib_err,
+        library="scaled_dot_product_attention(is_causal, enable_gqa)",
+        card=card)))
+    return row
+
+
+def time_decode(q, kc, vc, pos, kw, launches, card):
+    """flash_decode_partial at the last decode launch's inputs.  The
+    library yardstick, SDPA over cache[:, :pos+1], computes the
+    normalised output: the kernel's partials plus the combine."""
+    from repro_torch.kernels import cases, ops
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.models.layers import combine_partials
+    got = ops.flash_decode_partial(q, kc, vc, pos, **kw)
+    want = flash_decode_plain(q, kc, vc, pos, **kw)
+    for g, w, tol in zip(got, want, cases.DECODE_TOL):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    B, H, D = q.shape
+    T, Hkv = kc.shape[1], kc.shape[2]
+    n = int(pos) + 1 - kw.get("kv_offset", 0)      # rows this step reads
+    qh = q[:, :, None, :]
+    kh = kc[:, :n].transpose(1, 2)
+    vh = vc[:, :n].transpose(1, 2)
+    lib_err = float((_sdpa(qh, kh, vh, False)[:, :, 0].float()
+                     - combine_partials(*got)).abs().max())
+    flops = 4 * B * H * D * n
+    nbytes = (2 * B * n * Hkv * D * kc.element_size()
+              + B * H * D * q.element_size() + B * H * (D + 2) * 4)
+    ms = median_ms(lambda: ops.flash_decode_partial(q, kc, vc, pos, **kw),
+                   iters=50)
+    plain_ms = median_ms(lambda: flash_decode_plain(q, kc, vc, pos, **kw),
+                         iters=5, warmup=1)
+    library_ms = median_ms(lambda: _sdpa(qh, kh, vh, False), iters=50)
+    ops_per_s = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else \
+        FP32_OPS_PER_S
+    row = kernel_row("flash_decode_partial", ms, plain_ms, library_ms, err,
+                     launches, nbytes, flops, ops_per_s)
+    log("[timing] " + json.dumps(dict(
+        row, shape={"B": B, "H": H, "Hkv": Hkv, "T": T, "D": D,
+                    "pos": int(pos), "rows_read": n, "dtype": str(q.dtype)},
+        bytes=nbytes, flops=flops, library_max_abs_err=lib_err,
+        library="scaled_dot_product_attention over cache[:, :pos+1] "
+                "(normalised output: kernel plus combine)",
+        card=card)))
+    return row
+
+
+def lm_trace(model, params, prompt, prefill_s, step_s, card,
+             steps: int = 8) -> None:
+    """The main path's prefill, then ``steps`` decode steps, once more
+    under ``torch.profiler``: device busy time and idle share against
+    the untraced times, and the top kernels of each."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    dev = params["embed"].device
+    batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cache_len=LM_CACHE)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    profile_summary(prof, traced_s, prefill_s, 1, card, what="lm prefill",
+                    unit="prefill")
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = model.decode_step(params, cache, {"tokens": tok})
+            tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+            tok.cpu()
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    profile_summary(prof, traced_s, step_s * steps, steps, card,
+                    what="lm decode", unit="step")
+
+
+def lm_phase(dev, card):
+    """smollm-135m at full width through LMServingEngine; returns the
+    two attention kernels' rows."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.serving.engine import LMServingEngine
+
+    cfg = smollm_135m.CONFIG
+    model = registry.build(cfg)
+    params = model.init(0, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    assert n_params == model.param_count(), (n_params, model.param_count())
+    log(f"[lm] {cfg.name} at its published widths, nothing cut: "
+        f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads "
+        f"over {cfg.num_kv_heads} kv heads, head_dim "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, tied={cfg.tie_embeddings}, {cfg.dtype}; "
+        f"{n_params} parameters")
+    rng = np.random.RandomState(0)
+    prompt = rng.randint(0, cfg.vocab_size,
+                         (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    engine = LMServingEngine(model, params, cache_len=LM_CACHE, device=dev)
+    engine.generate(prompt[:, :64], steps=2)          # warm-up: cuBLAS etc.
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with LMProbe() as probe:
+        t0 = time.perf_counter()
+        tokens = engine.generate(prompt, steps=LM_STEPS)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_s = total_s - probe.prefill_s
+    log(f"[lm] generate: batch {LM_BATCH}, prompt {LM_PROMPT}, cache "
+        f"{LM_CACHE}, {LM_STEPS} steps; launches {launches}; prefill "
+        f"{probe.prefill_s * 1e3:.3f} ms; decode "
+        f"{decode_s / LM_STEPS * 1e3:.3f} ms per token (step of "
+        f"{LM_BATCH} sequences); {LM_BATCH * LM_STEPS / decode_s:.1f} "
+        f"generated tokens/s; whole generate {total_s * 1e3:.1f} ms; peak "
+        f"device memory {peak_gb:.3f} GB; {card}")
+    assert launches["flash_attention"] == cfg.num_layers, launches
+    assert launches["flash_decode_partial"] == cfg.num_layers * LM_STEPS, \
+        launches
+    assert launches["embedding_bag_fused_flat"] == 0
+    assert launches["embedding_bag_nmp_flat"] == 0
+    assert tokens.shape == (LM_BATCH, LM_STEPS) and tokens.dtype == np.int32
+    assert tokens.min() >= 0 and tokens.max() < model.vp
+    log(f"[lm] tokens (B, steps) = {tokens.shape}, first sequence "
+        f"{tokens[0, :16].tolist()}...")
+
+    # a decode step at full width never waits for the card
+    logits, cache = model.prefill(
+        params, {"tokens": torch.from_numpy(prompt[:, :64]).to(dev)},
+        cache_len=128)
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, cache, {"tokens": tok})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    del logits, cache, tok
+    log("[lm] a decode step ran under sync debug mode 'error': no host "
+        "sync inside it")
+    lm_trace(model, params, prompt, probe.prefill_s, decode_s / LM_STEPS,
+             card)
+    rows = [time_attention(*probe.first_attn, launches["flash_attention"],
+                           card),
+            time_decode(*probe.last_decode,
+                        launches["flash_decode_partial"], card)]
+    del probe, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The same full-width model in fp32 on a small input: the kernel path
+    # against the plain versions on the card (the repo's own parity
+    # tolerance for fp32 logits, 1e-4) and equal greedy tokens.
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    model32 = registry.build(cfg32)
+    params32 = tree_map(lambda t: t.float(), params)
+    small = prompt[:2, :96]
+    batch = {"tokens": torch.from_numpy(small).to(dev)}
+    ops.reset_launches()
+    logits_k, _ = model32.prefill(params32, batch, cache_len=128)
+    tok_k = LMServingEngine(model32, params32, cache_len=128,
+                            device=dev).generate(small, steps=8)
+    assert ops.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    assert ops.LAUNCHES["flash_decode_partial"] == 8 * cfg.num_layers
+    with PlainAttention():
+        logits_p, _ = model32.prefill(params32, batch, cache_len=128)
+        tok_p = LMServingEngine(model32, params32, cache_len=128,
+                                device=dev).generate(small, steps=8)
+    assert bool(torch.isfinite(logits_k).all())
+    err = float((logits_k - logits_p).abs().max())
+    torch.testing.assert_close(logits_k, logits_p, atol=1e-4, rtol=1e-4)
+    assert np.array_equal(tok_k, tok_p), (tok_k, tok_p)
+    log(f"[lm] fp32 copy, prompt (2, 96), 8 steps: prefill logits within "
+        f"{err:.3g} of the plain-attention path (tolerance 1e-4), greedy "
+        f"tokens equal")
+    return rows
 
 
 def main() -> int:
@@ -276,15 +678,19 @@ def main() -> int:
 
     # -------------------------------------------------------------- build
     t0 = time.perf_counter()
-    build.build(["embedding_bag"])
-    build.load("embedding_bag")
-    log(f"[build] embedding_bag.cu built in {time.perf_counter() - t0:.2f} s")
-    for line in build.BUILD_LOGS.get("embedding_bag", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    build.build(SOURCES)
+    for name in SOURCES:
+        build.load(name)
+    log(f"[build] {', '.join(n + '.cu' for n in SOURCES)} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
+        for line in build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build] {name}: {line.strip()}")
 
     # ------------------------------------------------------------ kernels
     check_grid(dev)
+    check_attention_grid(dev)
 
     # -------------------------------------------------------------- serve
     cfg = rm1.CONFIG.replace(
@@ -319,7 +725,7 @@ def main() -> int:
     for line in rep.summary():
         log(line)
     assert rep.completed == rep.total == len(reqs)
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in KERNELS), launches
     assert sum(launches.values()) == probe.calls, (launches, probe.calls)
     assert rep.stats.failures == 1
     scores = {r.rid: r.outputs for r in rep.results}
@@ -382,6 +788,12 @@ def main() -> int:
         f"launches {unit_launches}; the fused kernel over the whole "
         f"{tuple(params['embed'].shape)} bank (64-bit rows) is bitwise "
         f"equal to the slot-order reference")
+    del unit, out, whole, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- lm
+    rows += lm_phase(dev, card)
 
     log(card)
     log(json.dumps({"kernels": rows}))

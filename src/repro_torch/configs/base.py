@@ -1,14 +1,17 @@
-"""Model configs for the recommendation models this port serves.
+"""Model configs for the models this port serves.
 
-Only the DLRM half of ``repro.configs.base`` is here: ``ModelConfig``
-keeps the fields the RM1/RM2 modules set, and ``DLRMConfig`` is the
-paper's model shape.  The LM sub-configs arrive with the LM zoo.
+The counterpart of ``repro.configs.base``: ``ModelConfig`` keeps the
+fields the RM1/RM2 modules and the dense decoder family (smollm-135m)
+read, with the reference's defaults, and ``DLRMConfig`` is the paper's
+model shape.  The MoE, SSM, encoder-decoder and VLM sub-configs arrive
+with the rest of the LM zoo (ROADMAP Queue 1 item 6); until then
+``moe`` is always None.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -30,15 +33,35 @@ class DLRMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str               # dlrm (the LM families arrive with the zoo)
+    family: str               # dense | dlrm (the other families: zoo)
     num_layers: int
     d_model: int
     num_heads: int
     num_kv_heads: int
     d_ff: int
     vocab_size: int
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    attn_bias: bool = False           # qwen2.5: QKV projection bias
+    # pad query heads to this count for head-TP divisibility (padded heads
+    # are masked out of the output path: zero contribution + zero grads)
+    pad_heads_to: Optional[int] = None
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    moe: Optional[Any] = None         # MoEConfig arrives with the zoo
     dlrm: Optional[DLRMConfig] = None
     notes: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
+
+    @property
+    def padded_heads(self) -> int:
+        return self.pad_heads_to or self.num_heads
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -1,0 +1,56 @@
+"""The shapes and tolerances at which each CUDA kernel is held against
+its plain PyTorch version on the card: one definition for the card
+tests (``tests/test_torch_cuda.py``) and the smoke run
+(``chip_smoke.py``).
+
+Tolerances, as ``(atol, rtol)`` for ``torch.testing.assert_close``:
+
+- flash attention, fp32: 2e-5, the reference's own kernel test — the
+  kernel and the plain version do the same fp32 arithmetic in another
+  order;
+- flash attention, bf16: both widen the inputs to fp32, compute alike
+  and round the output to bf16 once, so an element differs by at most
+  one bf16 step (2^-7 of its size) plus the fp32 difference; held at
+  two steps, ``rtol = 2^-6``, with ``atol = 1e-4``.  A dropped,
+  repeated or mis-rescaled key tile moves a late row by some per cent
+  and fails it (the reference's looser 0.05 would not);
+- flash decode partials: 1e-4 on o and l, 1e-5 on m (all fp32).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: embedding bags: T tables, R rows each, D wide, B bags of P slots
+BAG_GRID = [(1, 64, 8, 4, 4), (4, 100, 16, 8, 10), (3, 257, 32, 5, 7),
+            (2, 128, 128, 16, 20),
+            (3, 96, 13, 6, 5),        # D not a multiple of the vector width
+            (2, 50, 8, 5, 1)]         # single-slot bags
+
+ATTN_GRID = [  # B, H, Hkv, S, T, D
+    (2, 4, 4, 128, 128, 64),          # G = 1
+    (2, 9, 3, 200, 200, 64),          # G = 3, ragged S = T
+    (1, 6, 2, 77, 131, 128),          # G = 3, D = 128, ragged, S < T
+    (1, 2, 2, 150, 40, 128),          # S > T
+    (1, 2, 2, 150, 40, 32),           # D = 32
+    (8, 9, 3, 1024, 1024, 64),        # smollm-135m's full-width prefill
+]
+ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -6)}
+
+DECODE_GRID = [  # B, H, Hkv, T, D, pos, kv_offset
+    (2, 4, 4, 256, 64, 10, 0),        # pos in the first block
+    (2, 9, 3, 256, 64, 130, 0),       # a middle block, G = 3
+    (2, 9, 3, 256, 64, 255, 0),       # the last block
+    (3, 6, 2, 200, 128, 150, 0),      # D = 128, ragged T
+    (2, 9, 3, 256, 64, 300, 256),     # kv_offset > 0
+    (2, 9, 3, 256, 64, 100, 256),     # a slice wholly after pos
+]
+DECODE_TOL = (1e-4, 1e-4, 1e-5)       # o, l, m
+
+
+def randn(rng: np.random.RandomState, shape, device,
+          dtype: torch.dtype) -> torch.Tensor:
+    """Standard normal values drawn with numpy, on ``device`` in
+    ``dtype``."""
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        device, dtype)

@@ -26,8 +26,10 @@
 // them out by shuffle.
 //
 // Row addresses are 64-bit: a full-width shard holds more than 2^31
-// elements.  A row outside the flat table traps rather than reading
-// out of bounds.
+// elements.  A row outside the flat table is clamped into it (row
+// min(max(offsets[t] + idx, 0), n_rows - 1)), which is what the reference's
+// Pallas kernels read for such a row: their block index is clamped the
+// same way.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,8 +93,8 @@ __device__ __forceinline__ void pool_bag(const T* __restrict__ table,
     for (int k = 0; k < n; ++k) {
       const int32_t ix = __shfl_sync(0xffffffffu, mine, k);
       if (ix < 0) continue;  // padding slot: predicated off, never added
-      const int64_t row = row_off + ix;
-      if (row < 0 || row >= n_rows) __trap();
+      int64_t row = row_off + ix;
+      row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
       const T* src = table + row * D;
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {

@@ -27,7 +27,8 @@ vector loads where ``D % 4 == 0``, is added there, and never touches
 shared memory; no atomics (they would break the add order); each warp
 fetches its bag's next 32 indices in one load and shares them by
 shuffle.  Row addresses are 64-bit (a full-width shard has more than
-2^31 elements).  ``csrc/embedding_bag.cu`` holds the kernels.
+2^31 elements); a row past the table's end reads its last row, as in
+the reference.  ``csrc/embedding_bag.cu`` holds the kernels.
 
 The functions here launch unconditionally; ``kernels.ops`` is the public
 entry that picks the plain version for CPU tensors and counts launches.
@@ -38,11 +39,10 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import common
 
 #: widest row the kernels' register accumulators hold
 MAX_D = 1024
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "embedding_bag"
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -54,11 +54,14 @@ def embedding_bag_flat_plain(flat_table: torch.Tensor, offsets: torch.Tensor,
                              idx: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of both kernels: gather every slot's row,
     zero the padding slots, and add the slots in ascending order into an
-    fp32 accumulator -> pooled (B, T, D) fp32."""
+    fp32 accumulator -> pooled (B, T, D) fp32.  A row past either end of
+    the flat table reads the nearest end row, as the reference's Pallas
+    kernels do (they clamp the block index)."""
     B, T, P = idx.shape
     valid = (idx >= 0).unsqueeze(-1)                          # (B,T,P,1)
     rows = (offsets.to(torch.int64)[None, :, None]
             + idx.clamp(min=0).to(torch.int64))               # (B,T,P)
+    rows = rows.clamp(0, flat_table.shape[0] - 1)
     gathered = flat_table[rows].to(torch.float32)             # (B,T,P,D)
     gathered = torch.where(valid, gathered, 0.0)
     acc = torch.zeros((B, T, flat_table.shape[1]), dtype=torch.float32,
@@ -66,16 +69,6 @@ def embedding_bag_flat_plain(flat_table: torch.Tensor, offsets: torch.Tensor,
     for p in range(P):
         acc = acc + gathered[:, :, p]
     return acc
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load(_SOURCE)
-    for fn in (lib.eb_fused_flat, lib.eb_nmp_flat):
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    lib.eb_error_string.argtypes = [ctypes.c_int]
-    lib.eb_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _check(flat_table: torch.Tensor, offsets: torch.Tensor,
@@ -92,9 +85,9 @@ def _check(flat_table: torch.Tensor, offsets: torch.Tensor,
             raise ValueError(f"{name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if flat_table.dtype not in _DTYPE_CODES:
+    if flat_table.dtype not in common.DTYPE_CODES:
         raise ValueError(f"table dtype {flat_table.dtype} is not one of "
-                         f"{sorted(map(str, _DTYPE_CODES))}")
+                         f"{sorted(map(str, common.DTYPE_CODES))}")
     if flat_table.dim() != 2 or not flat_table.is_contiguous():
         raise ValueError("the table must be a contiguous (rows, D) matrix")
     if idx.dim() != 3 or offsets.shape != (idx.shape[1],):
@@ -111,7 +104,8 @@ def _check(flat_table: torch.Tensor, offsets: torch.Tensor,
 def _launch(fn_name: str, flat_table: torch.Tensor, offsets: torch.Tensor,
             idx: torch.Tensor) -> torch.Tensor:
     _check(flat_table, offsets, idx)
-    lib = _lib()
+    lib = common.bind(_SOURCE, {"eb_fused_flat": _ARGTYPES,
+                                "eb_nmp_flat": _ARGTYPES}, "eb_error_string")
     B, T, P = idx.shape
     D = flat_table.shape[1]
     out = torch.empty((B, T, D), dtype=torch.float32, device=idx.device)
@@ -119,12 +113,10 @@ def _launch(fn_name: str, flat_table: torch.Tensor, offsets: torch.Tensor,
            and flat_table.data_ptr() % (4 * flat_table.element_size()) == 0)
     stream = torch.cuda.current_stream(idx.device).cuda_stream
     err = getattr(lib, fn_name)(
-        flat_table.data_ptr(), _DTYPE_CODES[flat_table.dtype],
+        flat_table.data_ptr(), common.DTYPE_CODES[flat_table.dtype],
         flat_table.shape[0], offsets.data_ptr(), idx.data_ptr(),
         out.data_ptr(), B, T, P, D, int(vec), idx.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           f"{lib.eb_error_string(err).decode()}")
+    common.raise_on_error(lib, "eb_error_string", fn_name, err)
     return out
 
 

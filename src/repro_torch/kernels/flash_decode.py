@@ -1,0 +1,137 @@
+"""Flash-decode partials: a CUDA kernel for Hopper and its plain PyTorch
+version.
+
+``flash_decode_partial`` (CUDA ``fd_partial``, ``csrc/flash_decode.cu``)
+    Replaces ``repro/kernels/flash_decode.py:flash_decode_partial``, the
+    Pallas kernel of one decode step's attention.  q ``(B, H, D)``, caches
+    ``(B, T, Hkv, D)``, a scalar ``pos`` and the slice's ``kv_offset`` ->
+    unnormalised ``o (B, H, D)`` and ``l, m (B, H)``, all fp32, over the
+    cache rows at or before ``pos``.  ``m`` starts at ``-1e30``, masked
+    rows score ``-1e30``, and blocks whose first row lies past ``pos`` are
+    skipped, so a slice wholly after ``pos`` gives ``m = -1e30``,
+    ``l = 0`` and ``o = 0`` (where ``layers.decode_attention_local`` of
+    the reference gives ``m = -inf``).
+
+Bound on the card: bytes, the cache rows up to ``pos`` read once
+(6.7 MB at smollm-135m's decode with B=8 and pos ~1088: 0.002 ms).  The
+kernel runs one CTA per (kv head, batch row), so the G query heads of a
+group share each K/V row read; at that shape this is only 24 CTAs on 132
+SMs.  The source says more.
+
+``pos`` stays on the device: the wrapper takes it as an int32 tensor and
+the kernel reads it there, so a decode step makes no host sync for it.
+The kernel's blocks are 64 rows; ``kv_block`` shapes only the plain
+version's blocking, and the results do not depend on it.
+
+The functions here launch unconditionally; ``kernels.ops`` is the public
+entry that picks the plain version for CPU tensors and counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple, Union
+
+import torch
+
+from repro_torch.kernels import common
+from repro_torch.kernels.common import NEG_INF
+
+#: largest G * D the kernel's registers hold
+MAX_GROUP_WIDTH = 2048
+_SOURCE = "flash_decode"
+_ENTRIES = {"fd_partial": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
+
+Pos = Union[int, torch.Tensor]
+Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def as_pos(pos: Pos, device: torch.device) -> torch.Tensor:
+    """``pos`` as a one-element int32 tensor on ``device`` (a tensor that
+    already lies there is used as it is, with no copy and no sync)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32).reshape(1)
+    return torch.tensor([pos], dtype=torch.int32, device=device)
+
+
+def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, pos: Pos, kv_offset: int = 0,
+                       kv_block: int = 256) -> Partials:
+    """Plain PyTorch version: the Pallas kernel's online softmax over
+    ``kv_block``-row blocks, in fp32.  A block past ``pos`` leaves the
+    running (m, l, acc) as they are, selected on the device rather than
+    skipped on the host, so ``pos`` is never read back."""
+    B, H, D = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    kb = min(kv_block, T)
+    scale = 1.0 / math.sqrt(D)
+    p_now = as_pos(pos, q.device)[0]
+    qf = q.float().reshape(B, Hkv, G, D)
+    m = torch.full((B, Hkv, G, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, G, D), device=q.device)
+    for k0 in range(0, T, kb):
+        k1 = min(k0 + kb, T)
+        kf = k_cache[:, k0:k1].float()                   # (B, kb, Hkv, D)
+        vf = v_cache[:, k0:k1].float()
+        s = torch.einsum("bhgd,bthd->bhgt", qf, kf) * scale
+        t = kv_offset + torch.arange(k0, k1, device=q.device)
+        s = torch.where(t <= p_now, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        live = kv_offset + k0 <= p_now
+        l = torch.where(live, l * corr + p.sum(-1, keepdim=True), l)
+        acc = torch.where(live, acc * corr
+                          + torch.einsum("bhgt,bthd->bhgd", p, vf), acc)
+        m = torch.where(live, m_new, m)
+    return (acc.reshape(B, H, D), l.reshape(B, H), m.reshape(B, H))
+
+
+def _check(q: torch.Tensor, k_cache: torch.Tensor,
+           v_cache: torch.Tensor) -> None:
+    common.check_attention_operands("decode", q, k_cache=k_cache,
+                                    v_cache=v_cache)
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"q must be (B, H, D) and the caches (B, T, Hkv, "
+                         f"D), got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, H, D = q.shape
+    _, T, Hkv, Dc = k_cache.shape
+    if k_cache.shape[0] != B or Dc != D or H % Hkv:
+        raise ValueError(f"caches {tuple(k_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)}: same B and D, H a multiple "
+                         f"of Hkv")
+    common.check_head_dim(D)
+    if (H // Hkv) * D > MAX_GROUP_WIDTH:
+        raise ValueError(f"G * D = {(H // Hkv) * D} exceeds the kernel's "
+                         f"{MAX_GROUP_WIDTH}")
+    if min(B, T) < 1:
+        raise ValueError("the kernel takes non-empty B and T")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos: Pos,
+                         kv_offset: int = 0) -> Partials:
+    """Launch the decode kernel on the card -> fp32 (o, l, m)."""
+    _check(q, k_cache, v_cache)
+    lib = common.bind(_SOURCE, _ENTRIES, "fd_error_string")
+    B, H, D = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    pos_t = as_pos(pos, q.device)
+    o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.fd_partial(q.data_ptr(), k_cache.data_ptr(),
+                         v_cache.data_ptr(), pos_t.data_ptr(), o.data_ptr(),
+                         l.data_ptr(), m.data_ptr(),
+                         common.DTYPE_CODES[q.dtype], B, Hkv, H // Hkv, T, D, int(kv_offset),
+                         1.0 / math.sqrt(D), q.device.index, stream)
+    common.raise_on_error(lib, "fd_error_string", "fd_partial", err)
+    return o, l, m

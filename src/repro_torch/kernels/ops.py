@@ -1,5 +1,6 @@
-"""Public wrappers for the bag kernels: the counterparts of
-``repro/kernels/ops.py``'s embedding-bag entries.
+"""Public wrappers for the port's kernels: the counterparts of
+``repro/kernels/ops.py``'s embedding-bag, flash-attention and
+flash-decode entries, with the reference's signatures and layouts.
 
 Dispatch is by where the tensors lie.  For CPU tensors a wrapper runs
 the kernel's plain PyTorch version; for CUDA tensors it launches the
@@ -14,10 +15,14 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import embedding_bag as _eb
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"embedding_bag_fused_flat": 0,
-                            "embedding_bag_nmp_flat": 0}
+                            "embedding_bag_nmp_flat": 0,
+                            "flash_attention": 0,
+                            "flash_decode_partial": 0}
 
 
 def reset_launches() -> None:
@@ -73,3 +78,32 @@ def embedding_bag_nmp(tables: torch.Tensor,
     out = embedding_bag_nmp_flat(tables.reshape(T * R, D),
                                  _table_offsets(tables), idx)
     return out.to(tables.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_block: int = 128,
+                    kv_block: int = 128) -> torch.Tensor:
+    """q (B, H, S, D); k, v (B, Hkv, T, D) -> (B, H, S, D) in q's dtype.
+    The block sizes shape the plain version only: the kernel tiles by 64."""
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal=causal,
+                                         q_block=q_block, kv_block=kv_block)
+    out = _fa.flash_attention(q, k, v, causal=causal)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos, kv_offset: int = 0,
+                         kv_block: int = 256):
+    """q (B, H, D); caches (B, T, Hkv, D); pos a scalar (an int32 device
+    tensor on the serving path) -> fp32 partials (o (B, H, D)
+    unnormalised, l (B, H), m (B, H)) for ``layers.combine_partials``.
+    ``kv_block`` shapes the plain version only."""
+    if q.device.type == "cpu":
+        return _fd.flash_decode_plain(q, k_cache, v_cache, pos,
+                                      kv_offset=kv_offset, kv_block=kv_block)
+    out = _fd.flash_decode_partial(q, k_cache, v_cache, pos,
+                                   kv_offset=kv_offset)
+    LAUNCHES["flash_decode_partial"] += 1
+    return out

@@ -1,6 +1,9 @@
-"""Plain PyTorch oracles for the bag kernels (the counterparts of
-``repro/kernels/ref.py``'s embedding-bag entries)."""
+"""Plain PyTorch oracles for every kernel (the counterparts of
+``repro/kernels/ref.py``): one-shot computations, independent of the
+kernels' blocking, that the tests hold the kernels against."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -28,3 +31,55 @@ def embedding_bag_seq_ref(tables: torch.Tensor, idx: torch.Tensor
     T, R, D = tables.shape
     offsets = torch.arange(T, dtype=torch.int64, device=tables.device) * R
     return embedding_bag_flat_plain(tables.reshape(T * R, D), offsets, idx)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q (B, H, S, D); k, v (B, Hkv, T, D) -> (B, H, S, D): one full
+    softmax in fp32 (masked logits -inf), cast to q's dtype."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, S, D)
+    s = torch.einsum("bhgsd,bhtd->bhgst", qg.float(), k.float()) * D ** -0.5
+    if causal:
+        qp = torch.arange(S, device=q.device)[:, None]
+        kp = torch.arange(T, device=q.device)[None, :]
+        s = torch.where(qp >= kp, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgst,bhtd->bhgsd", p, v.float())
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos, kv_offset: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Partial decode attention (unnormalised o, l, m) in one pass, as
+    the reference's ``layers.decode_attention_local`` computes it: rows
+    after ``pos`` masked to -inf (so a slice wholly after ``pos`` gives
+    m = -inf, l = 0, o = 0), and p rounded to the cache dtype before the
+    PV product, whose result keeps that dtype."""
+    B, H, D = q.shape
+    Hkv = k_cache.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhgd,bthd->bhgt", qg.float(),
+                     k_cache.float()) * D ** -0.5
+    t = kv_offset + torch.arange(k_cache.shape[1], device=q.device)
+    s = torch.where(t <= torch.as_tensor(pos, device=q.device), s,
+                    float("-inf"))
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    # rows may be fully masked on a slice past pos -> p=0, l=0 (safe)
+    p = torch.where(torch.isfinite(m)[..., None], p, 0.0)
+    l = p.sum(-1)
+    o = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float()).to(v_cache.dtype)
+    return o.reshape(B, H, D), l.reshape(B, H), m.reshape(B, H)
+
+
+def decode_attention_full_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, pos) -> torch.Tensor:
+    """Normalised single-slice decode attention output, in the cache
+    dtype."""
+    o, l, _ = flash_decode_ref(q, k_cache, v_cache, pos)
+    return (o / l.clamp(min=1e-37)[..., None]).to(o.dtype)

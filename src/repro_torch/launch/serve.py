@@ -1,4 +1,5 @@
-"""Serving driver: disaggregated DLRM scoring on the CUDA card.
+"""Serving entry point: disaggregated DLRM scoring and LM generation on the
+CUDA card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rm1 --requests 64
   PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -7,13 +8,17 @@
       --cns 2 --mns 4 --mn-type "2xddr_mn+2xnmp_mn" --fail-mn 1
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rm1 --cluster \\
       --device cpu                       # plain PyTorch path on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --full --decode-steps 8            # LM generation
 
-The PyTorch counterpart of ``repro.launch.serve`` for the DLRM archs:
+The PyTorch counterpart of ``repro.launch.serve``: for the DLRM archs
 the single-unit engine and the cluster path, which goes through the
 declarative scenario API (``serving.scenario.run_scenario``) with the
-flags assembled into a ``ScenarioSpec`` by :func:`spec_from_flags`.
-``--elastic``, ``--sla-p99-ms``, ``--models`` and the LM archs need
-modules that are not ported yet, and raise.
+flags assembled into a ``ScenarioSpec`` by :func:`spec_from_flags`; for
+smollm-135m greedy generation through ``LMServingEngine`` (two prompts
+of 16 seeded tokens, a 128-slot cache).  ``--elastic``,
+``--sla-p99-ms``, ``--models`` and the other LM archs need modules that
+are not ported yet, and raise.
 """
 from __future__ import annotations
 
@@ -25,9 +30,10 @@ import numpy as np
 from repro_torch import configs
 from repro_torch.data.queries import QueryDist, dlrm_request_stream
 from repro_torch.device import resolve_device
-from repro_torch.models.dlrm import DLRMModel
+from repro_torch.models import registry
 from repro_torch.serving.cluster import parse_mn_types
-from repro_torch.serving.engine import DLRMServingEngine, Request
+from repro_torch.serving.engine import (DLRMServingEngine, LMServingEngine,
+                                        Request)
 from repro_torch.serving.scenario import (FailMN, ModelRef, ScenarioSpec,
                                           Topology, Workload, run_scenario)
 
@@ -150,7 +156,22 @@ def parser() -> argparse.ArgumentParser:
                         "of its nominal time (0 disables)")
     p.add_argument("--no-kernel", dest="use_kernel", action="store_false",
                    default=True)
+    p.add_argument("--decode-steps", type=int, default=8,
+                   help="LM archs: tokens generated per sequence")
     return p
+
+
+def _generate(args, cfg, model, device) -> None:
+    if args.cluster:
+        print("[serve] --cluster only applies to dlrm archs; "
+              "running single-unit LM generation")
+    rng = np.random.RandomState(args.seed)
+    engine = LMServingEngine(model, model.init(args.seed, device=device),
+                             cache_len=128, device=device)
+    toks = rng.randint(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    out = engine.generate(toks, steps=args.decode_steps)
+    print(f"[serve] generated {out.shape[1]} tokens/seq for "
+          f"{out.shape[0]} sequences: {out[0].tolist()}")
 
 
 def main(argv=None):
@@ -167,7 +188,10 @@ def main(argv=None):
 
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
-    model = DLRMModel(cfg)
+    model = registry.build(cfg)
+    if cfg.family != "dlrm":
+        _generate(args, cfg, model, device)
+        return 0
     if args.cluster:
         spec = spec_from_flags(args)
         params = model.init(args.seed, device=device)

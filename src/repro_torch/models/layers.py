@@ -1,0 +1,226 @@
+"""Shared transformer building blocks, in PyTorch: the no-mesh half of
+``repro.models.layers``.
+
+Attention modes
+---------------
+train/prefill:  :func:`flash_attention` keeps the reference's
+                ``flash_attention_jnp`` interface, ``(B, S, H, D)`` in and
+                out, and runs ``kernels.ops.flash_attention``: the CUDA
+                flash-attention kernel on the card, its plain version on
+                the CPU.  GQA is native in the kernel (q head h reads kv
+                head h // G), so K/V are never repeated per q head.
+decode:         :func:`decode_attention_local` computes one cache slice's
+                partials (o, l, m) with ``kernels.ops.flash_decode_partial``
+                and :func:`combine_partials` normalises them; with no mesh
+                there is one slice, the whole cache.
+
+The partials differ from the reference's jnp path in precision: the
+reference rounds p to the working dtype before the PV product and keeps
+o in it, the kernels keep p, o, l and m in fp32 (as the Pallas kernels
+do); :func:`decode_attention_unsharded` casts the normalised output to
+the working dtype.  In bf16 the two differ at the bf16 level.
+
+The reference's mesh half (``context_parallel_attention``,
+``sharded_decode_attention``, ``batch_pspec_entry``, and the sharding
+constraints that are no-ops without a mesh) waits for the mesh (ROADMAP
+Queue 1 item 8).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.params import Spec
+
+# ---------------------------------------------------------------- norms
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def norm_table(d: int) -> Spec:
+    return Spec((d,), ("embed",), "zeros")   # scale stored as (1 + s)
+
+
+# ---------------------------------------------------------------- rope
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) or (..., H, D) with pos broadcastable to S."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    inv = theta ** (-freqs / half)
+    ang = pos[..., None].float() * inv                      # (..., S, half)
+    ang = ang[..., None, :]                                 # broadcast heads
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- mlp
+
+
+def mlp_table(d: int, f: int) -> dict:
+    return {
+        "wi_gate": Spec((d, f), ("embed", "ffn")),
+        "wi_up": Spec((d, f), ("embed", "ffn")),
+        "wo": Spec((f, d), ("ffn", "embed")),
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU, with the silu in fp32."""
+    gate = x @ p["wi_gate"]
+    up = x @ p["wi_up"]
+    h = F.silu(gate.float()).to(x.dtype) * up
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------- attention
+
+
+def attn_table(cfg) -> dict:
+    hd = cfg.resolved_head_dim
+    Hp = cfg.padded_heads
+    t = {
+        "wq": Spec((cfg.d_model, Hp, hd),
+                   ("attn_din", "heads", "head_dim")),
+        "wk": Spec((cfg.d_model, cfg.num_kv_heads, hd),
+                   ("attn_din", "kv_heads", "head_dim")),
+        "wv": Spec((cfg.d_model, cfg.num_kv_heads, hd),
+                   ("attn_din", "kv_heads", "head_dim")),
+        "wo": Spec((Hp, hd, cfg.d_model),
+                   ("heads", "head_dim", "attn_dout")),
+    }
+    if cfg.attn_bias:
+        t["bq"] = Spec((Hp, hd), ("heads", "head_dim"), "zeros")
+        t["bk"] = Spec((cfg.num_kv_heads, hd), ("kv_heads", "head_dim"), "zeros")
+        t["bv"] = Spec((cfg.num_kv_heads, hd), ("kv_heads", "head_dim"), "zeros")
+    if cfg.qk_norm:
+        t["q_norm"] = Spec((hd,), ("head_dim",), "zeros")
+        t["k_norm"] = Spec((hd,), ("head_dim",), "zeros")
+    return t
+
+
+def head_mask(cfg, dtype: torch.dtype,
+              device: torch.device) -> Optional[torch.Tensor]:
+    """(Hp,) mask zeroing padded heads' output path. Padding is laid out
+    WITHIN each kv group — group g holds H/kv real heads then pad slots —
+    so the GQA q->kv mapping of the real heads is unchanged."""
+    Hp, H, kv = cfg.padded_heads, cfg.num_heads, cfg.num_kv_heads
+    if Hp == H:
+        return None
+    gp, g = Hp // kv, H // kv
+    return ((torch.arange(Hp, device=device) % gp) < g).to(dtype)
+
+
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, h, k) -> (..., h, k)."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: Optional[torch.Tensor]):
+    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    if cfg.attn_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if pos is not None:  # rope (None for whisper encoder/cross paths)
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool) -> torch.Tensor:
+    """Blocked online-softmax attention. q: (B,S,H,D), k/v: (B,T,Hkv,D)
+    -> (B,S,H,D), through ``kernels.ops.flash_attention``.  The operands
+    go in as (B,H,S,D) views of the (B,S,H,D) tensors; the kernel reads
+    and writes them in place, so no copy is made on the card.  The
+    kernel picks its own tiles, so the reference's ``q_block`` and
+    ``kv_block`` (and ``pick_block``, which sized them) have no
+    counterpart here."""
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal)
+    return o.transpose(1, 2)
+
+
+# ------------------------------------------------------------- decode
+
+
+def decode_attention_local(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos: torch.Tensor,
+                           kv_offset: int = 0):
+    """Partial attention over a local cache slice.
+
+    q: (B,H,D); caches: (B,T_loc,Hkv,D); pos: scalar current position
+    (global, an int32 device tensor); kv_offset: global position of this
+    slice's first row.  Returns fp32 partials (o, l, m) for
+    :func:`combine_partials` — the Fsum pattern: only (B,H,D)+(B,H)+(B,H)
+    leave the slice.  A slice wholly after ``pos`` gives m = -1e30, as
+    the Pallas kernel does (the reference's jnp path gives -inf).
+    """
+    return ops.flash_decode_partial(q.contiguous(), k_cache, v_cache, pos,
+                                    kv_offset=kv_offset)
+
+
+def combine_partials(o: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
+                     axis_name: Optional[str] = None) -> torch.Tensor:
+    """Combine flash-decode partials: with no mesh axis, normalise the
+    one slice's."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "combining partials across a mesh axis waits for the mesh "
+            "(ROADMAP Queue 1 item 8)")
+    return (o / l.clamp(min=1e-37)[..., None]).to(o.dtype)
+
+
+def decode_attention_unsharded(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, k_new: torch.Tensor,
+                               v_new: torch.Tensor, pos: torch.Tensor):
+    """Single-device path: write the new token's K/V at ``pos`` and attend
+    over the whole cache -> (o (B,H,D) in q's dtype, k_cache, v_cache).
+
+    The write is IN PLACE (``index_copy_`` at the device ``pos``, so no
+    host sync), where the reference returns an updated copy; the returned
+    caches are the arguments.  As the reference's dynamic update does, a
+    ``pos`` past the cache writes its last slot."""
+    idx = pos.reshape(1).to(torch.int64).clamp(max=k_cache.shape[1] - 1)
+    k_cache.index_copy_(1, idx, k_new.unsqueeze(1).to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v_new.unsqueeze(1).to(v_cache.dtype))
+    o, l, m = decode_attention_local(q, k_cache, v_cache, pos)
+    return combine_partials(o, l, m).to(q.dtype), k_cache, v_cache
+
+
+# ---------------------------------------------------------------- embed
+
+
+def embed_table(vocab: int, d: int) -> Spec:
+    return Spec((vocab, d), ("vocab", "embed"), "normal:0.02")
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), table)
+
+
+def unembed(x: torch.Tensor, table_or_head: torch.Tensor,
+            tied: bool) -> torch.Tensor:
+    if tied:
+        return x @ table_or_head.T
+    return x @ table_or_head
+
+
+def head_table(vocab: int, d: int) -> Spec:
+    return Spec((d, vocab), ("embed", "vocab"))

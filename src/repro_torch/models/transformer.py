@@ -1,0 +1,230 @@
+"""Decoder-only transformer LM, dense family, in PyTorch: the counterpart
+of ``repro.models.transformer.DecoderLM`` for generation.
+
+Parameters are the reference's pytree: a nested dict whose per-layer
+leaves are stacked on a leading ``(L, ...)`` axis, so
+:func:`params_from_reference` carries the JAX parameters over as they
+are.  The reference's ``lax.scan`` over layers is a Python loop over
+that axis here.  Prefill attention runs the flash-attention kernel
+(``layers.flash_attention``), decode attention the flash-decode kernel
+(``layers.decode_attention_unsharded``).
+
+Differences from the reference, each deliberate:
+
+- GQA prefill: with no mesh the reference repeats K/V to all heads
+  before its jnp attention; the kernel reads kv head ``h // G`` instead.
+  The numbers are the same, and the cache holds the un-repeated K/V in
+  both.
+- Decode keeps ``pos`` a device int32 tensor and writes each new K/V
+  into the cache in place (the reference returns updated copies):
+  ``decode_step`` mutates ``cache["k"]`` and ``cache["v"]``.  It reads
+  nothing back to the host; the engine reads back only the sampled
+  token.
+- Attention partials stay in fp32 (see ``layers``).
+
+``loss``, ``cross_entropy``, MoE and VLM wait for training and the rest
+of the zoo (ROADMAP Queue 1 items 6 and 7).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import params as pm
+
+
+def padded_vocab(v: int) -> int:
+    return -(-v // 128) * 128
+
+
+def pad_cache(kv: torch.Tensor, cache_len: Optional[int],
+              axis: int = 2) -> torch.Tensor:
+    """Pad a stacked (L,B,S,...) prefill cache out to cache_len slots."""
+    if cache_len is None or cache_len <= kv.shape[axis]:
+        return kv
+    pad = [0, 0] * (kv.dim() - 1 - axis) + [0, cache_len - kv.shape[axis]]
+    return F.pad(kv, pad)
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def params_from_reference(tree: Any, device: DeviceLike = None) -> Any:
+    """Convert a reference parameter tree (nested dicts of numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, params)``; bf16 arrives as the
+    ``ml_dtypes`` bfloat16 numpy type) into the port's tensors on
+    ``device`` (default: the CUDA card), with the same dtypes."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":        # numpy has no bf16 of its own
+            bits = torch.from_numpy(a.view(np.int16).copy())
+            return bits.view(torch.bfloat16).to(dev)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return pm.tree_map(leaf, tree)
+
+
+class DecoderLM:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != "dense" or cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: only the dense decoder family is ported; "
+                f"MoE and VLM wait for ROADMAP Queue 1 item 6")
+        self.cfg = cfg
+        self.vp = padded_vocab(cfg.vocab_size)
+
+    # ------------------------------------------------------------ params
+    def _layer_table(self) -> dict:
+        cfg = self.cfg
+        return {
+            "ln1": L.norm_table(cfg.d_model),
+            "attn": L.attn_table(cfg),
+            "ln2": L.norm_table(cfg.d_model),
+            "mlp": L.mlp_table(cfg.d_model, cfg.d_ff),
+        }
+
+    def _top_table(self) -> dict:
+        cfg = self.cfg
+        t = {
+            "embed": L.embed_table(self.vp, cfg.d_model),
+            "final_norm": L.norm_table(cfg.d_model),
+        }
+        if not cfg.tie_embeddings:
+            t["head"] = L.head_table(self.vp, cfg.d_model)
+        return t
+
+    def init(self, seed: int = 0, device: DeviceLike = None) -> Dict:
+        """Random parameters in ``cfg.param_dtype`` drawn from one
+        ``torch.Generator`` seeded with ``seed`` on ``device`` (default:
+        the CUDA card).  The draws follow the reference's distributions,
+        not its numbers: JAX's PRNG is its own."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        dt = _dtype(self.cfg.param_dtype)
+        params = pm.init_table(gen, self._top_table(), dt, dev)
+        params["layers"] = pm.init_table(gen, self._layer_table(), dt, dev,
+                                         stack=self.cfg.num_layers)
+        return params
+
+    def param_shapes(self, dtype: Optional[torch.dtype] = None) -> Dict:
+        dt = dtype or _dtype(self.cfg.param_dtype)
+        shapes = pm.shape_tree(self._top_table(), dt)
+        shapes["layers"] = pm.shape_tree(self._layer_table(), dt,
+                                         stack=self.cfg.num_layers)
+        return shapes
+
+    def param_count(self) -> int:
+        n = pm.table_size(self._top_table())
+        n += pm.table_size(self._layer_table()) * self.cfg.num_layers
+        return n
+
+    @staticmethod
+    def _layer_params(params: Dict, i: int) -> Dict:
+        return pm.tree_map(lambda a: a[i], params["layers"])
+
+    # ----------------------------------------------------------- forward
+    def _attention(self, lp, x, pos):
+        cfg = self.cfg
+        q, k, v = L._project_qkv(lp, x, cfg, pos)
+        kv = (k, v)
+        o = L.flash_attention(q, k, v, causal=True)
+        mask = L.head_mask(cfg, o.dtype, o.device)
+        if mask is not None:
+            o = o * mask[None, None, :, None]
+        out = o.flatten(-2) @ lp["wo"].flatten(0, 1)
+        return out, kv
+
+    def _layer(self, lp, x, pos):
+        cfg = self.cfg
+        h, kv = self._attention(
+            lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), pos)
+        x = x + h
+        hn = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        x = x + L.mlp_apply(lp["mlp"], hn)
+        return x, kv
+
+    def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+        x = L.embed_lookup(params["embed"], batch["tokens"])
+        pos = torch.arange(x.shape[1], device=x.device)
+        return x, pos
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Full-sequence hidden states after the final norm (the
+        reference's ``forward`` without its MoE aux loss)."""
+        cfg = self.cfg
+        x, pos = self._embed_inputs(params, batch)
+        for i in range(cfg.num_layers):
+            x, _ = self._layer(self._layer_params(params, i), x, pos)
+        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+    def _logits(self, params, x):
+        if self.cfg.tie_embeddings:
+            return L.unembed(x, params["embed"], tied=True)
+        return L.unembed(x, params["head"], tied=False)
+
+    # ----------------------------------------------------------- serving
+    def prefill(self, params, batch, cache_len: Optional[int] = None):
+        """Full-sequence forward; returns (last_logits, cache).
+
+        cache_len pads the emitted KV cache beyond the prompt so decode
+        steps have room (defaults to prompt length).
+        """
+        cfg = self.cfg
+        dt = _dtype(cfg.dtype)
+        x, pos = self._embed_inputs(params, batch)
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            x, (k, v) = self._layer(self._layer_params(params, i), x, pos)
+            ks.append(k.to(dt))
+            vs.append(v.to(dt))
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x[:, -1:, :])
+        cache = {"k": pad_cache(torch.stack(ks), cache_len),
+                 "v": pad_cache(torch.stack(vs), cache_len),
+                 "pos": torch.full((), x.shape[1] - 1, dtype=torch.int32,
+                                   device=x.device)}
+        return logits, cache
+
+    def _decode_attention(self, lp, x, pos, kc, vc):
+        """x: (B,1,d); kc/vc: (B,T,kv,D), updated in place."""
+        cfg = self.cfg
+        q, k, v = L._project_qkv(lp, x, cfg, pos[None])
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]          # (B,H,D)/(B,kv,D)
+        o, kc, vc = L.decode_attention_unsharded(q, kc, vc, k, v, pos)
+        mask = L.head_mask(cfg, o.dtype, o.device)
+        if mask is not None:
+            o = o * mask[None, :, None]
+        out = (o.flatten(-2) @ lp["wo"].flatten(0, 1))[:, None, :]
+        return out, kc, vc
+
+    def decode_step(self, params, cache, batch):
+        """One token for the whole batch. batch: {"tokens": (B,1)}.
+
+        Writes the new K/V into ``cache["k"]``/``cache["v"]`` in place
+        and returns (logits, {"k", "v", "pos"}) with the same buffers and
+        the advanced device ``pos``."""
+        cfg = self.cfg
+        x = L.embed_lookup(params["embed"], batch["tokens"])
+        pos = cache["pos"] + 1
+        ks, vs = cache["k"], cache["v"]
+        for i in range(cfg.num_layers):
+            lp = self._layer_params(params, i)
+            h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            h, _, _ = self._decode_attention(lp["attn"], h, pos, ks[i], vs[i])
+            x = x + h
+            hn = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+            x = x + L.mlp_apply(lp["mlp"], hn)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = self._logits(params, x)
+        return logits, {"k": ks, "v": vs, "pos": pos}

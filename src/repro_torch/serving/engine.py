@@ -1,11 +1,11 @@
 """Single-unit serving engine: batched request execution with the
 paper's sequential (lock-step) semantics, in PyTorch on the device.
 
-The counterpart of the DLRM half of ``repro.serving.engine``: the
-request and result records, and ``DLRMServingEngine``, which packs
-requests into fixed-size batches (-1 padded), splits an oversized
-request across batches, and scores each batch in one step.  The LM
-engine arrives with the LM zoo.
+The counterpart of ``repro.serving.engine``: the request and result
+records; ``DLRMServingEngine``, which packs requests into fixed-size
+batches (-1 padded), splits an oversized request across batches, and
+scores each batch in one step; and ``LMServingEngine``, greedy
+prefill + decode generation for the dense decoder LM.
 """
 from __future__ import annotations
 
@@ -97,3 +97,34 @@ class DLRMServingEngine:
                 out.append(Result(r.rid, scores[o:o + r.size], 0.0))
                 o += r.size
         return out
+
+
+class LMServingEngine:
+    """Prefill + decode serving for the LM archs (greedy sampling) on
+    ``device`` (default: the CUDA card); ``params`` must already lie
+    there."""
+
+    def __init__(self, model, params, cache_len: int = 256,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        require_on(params["embed"], self.device)
+        self.model = model
+        self.params = params
+        self.cache_len = cache_len
+
+    def generate(self, tokens: np.ndarray, steps: int = 16) -> np.ndarray:
+        """Greedy generation: ``argmax`` over the last logits after the
+        prefill and after each of ``steps`` decode calls -> (B, steps)
+        int32 tokens.  Each step reads back only its sampled token."""
+        batch = {"tokens": torch.from_numpy(
+            np.asarray(tokens, np.int32)).to(self.device)}
+        logits, cache = self.model.prefill(self.params, batch,
+                                           cache_len=self.cache_len)
+        out = []
+        tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+        for _ in range(steps):
+            out.append(tok.cpu().numpy())
+            logits, cache = self.model.decode_step(self.params, cache,
+                                                   {"tokens": tok})
+            tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+        return np.concatenate(out, axis=1)

@@ -6,10 +6,15 @@ dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernels are held against their plain PyTorch versions: fp32 (and
-bf16, whose rows widen to fp32 exactly and add in the same order) is
-bitwise equal.  The cluster on the card is held against the same
-cluster on the CPU: equal stats, scores within rtol=1e-5, atol=1e-6.
+The bag kernels are held against their plain PyTorch version: fp32
+(and bf16, whose rows widen to fp32 exactly and add in the same order)
+is bitwise equal.  The attention kernels are held against theirs at the
+shapes and tolerances of ``repro_torch.kernels.cases`` (which
+``chip_smoke.py`` uses too; its docstring gives the reasons): fp32
+within 2e-5 and bf16 within two bf16 steps of each element for flash
+attention, 1e-4 on o and l and 1e-5 on m for the decode partials.  The cluster on the card is held against the same cluster on
+the CPU: equal stats, scores within rtol=1e-5, atol=1e-6; the LM on the
+card against the LM on the CPU: fp32 logits within 1e-4, equal tokens.
 """
 import dataclasses
 
@@ -17,19 +22,20 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import rm1
+from repro_torch.configs import rm1, smollm_135m
 from repro_torch.data.queries import dlrm_request_stream
+from repro_torch.kernels import cases
 from repro_torch.kernels import embedding_bag as teb
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops
 from repro_torch.models.dlrm import DLRMModel
+from repro_torch.models.params import tree_map
+from repro_torch.models.transformer import DecoderLM
 from repro_torch.serving.cluster import ClusterConfig, ClusterEngine
-from repro_torch.serving.engine import Request
+from repro_torch.serving.engine import LMServingEngine, Request
 from repro_torch.serving.scenario import FailMN
 
-GRID = [(1, 64, 8, 4, 4), (4, 100, 16, 8, 10), (3, 257, 32, 5, 7),
-        (2, 128, 128, 16, 20),
-        (3, 96, 13, 6, 5),        # D not a multiple of the vector width
-        (2, 50, 8, 5, 1)]         # single-slot bags
 KERNELS = ["embedding_bag_fused_flat", "embedding_bag_nmp_flat"]
 
 
@@ -54,7 +60,7 @@ def _case(T, R, D, B, P, dev, dtype=torch.float32):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,R,D,B,P", GRID)
+@pytest.mark.parametrize("T,R,D,B,P", cases.BAG_GRID)
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_kernel_bitwise_vs_plain(cuda, kernel, T, R, D, B, P, dtype):
     flat, offsets, idx = _case(T, R, D, B, P, cuda, dtype)
@@ -96,9 +102,148 @@ def test_cluster_on_card_matches_cpu(cuda):
     ops.reset_launches()
     res, stats = ClusterEngine(model, dev_params, cfg).serve(reqs,
                                                              events=events)
-    assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert all(ops.LAUNCHES[k] > 0 for k in KERNELS), ops.LAUNCHES
     assert dataclasses.asdict(stats) == dataclasses.asdict(cpu_stats)
     want = {r.rid: r.outputs for r in cpu_res}
     for r in res:
         np.testing.assert_allclose(r.outputs, want[r.rid], rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernel_out_of_range_rows_read_last_row(cuda, kernel):
+    """A row past the shard's end reads its last row, as the reference's
+    kernels and the plain version do."""
+    flat = torch.arange(40, dtype=torch.float32, device=cuda).reshape(10, 4)
+    offsets = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
+    idx = torch.tensor([[[1, 7, -1], [2, 9, -1]]], dtype=torch.int32,
+                       device=cuda)
+    got = getattr(ops, kernel)(flat, offsets, idx)
+    torch.cuda.synchronize()
+    want = torch.tensor([[[32., 34, 36, 38], [64, 66, 68, 70]]], device=cuda)
+    assert torch.equal(got, want)
+    assert torch.equal(got, teb.embedding_bag_flat_plain(flat, offsets, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,Hkv,S,T,D", cases.ATTN_GRID)
+def test_flash_attention_vs_plain(cuda, B, H, Hkv, S, T, D, causal, dtype):
+    rng = np.random.RandomState(S + T + D)
+    q = cases.randn(rng, (B, H, S, D), cuda, dtype)
+    k = cases.randn(rng, (B, Hkv, T, D), cuda, dtype)
+    v = cases.randn(rng, (B, Hkv, T, D), cuda, dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, S, D)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    atol, rtol = cases.ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_strided_views(cuda):
+    """(B, S, H, D) tensors permuted to (B, H, S, D): read in place, and
+    the output keeps the permuted layout."""
+    rng = np.random.RandomState(3)
+    B, S, H, Hkv, D = 2, 96, 6, 2, 64
+    q = cases.randn(rng, (B, S, H, D), cuda, torch.bfloat16).transpose(1, 2)
+    k = cases.randn(rng, (B, S, Hkv, D), cuda, torch.bfloat16).transpose(1, 2)
+    v = cases.randn(rng, (B, S, Hkv, D), cuda, torch.bfloat16).transpose(1, 2)
+    got = ops.flash_attention(q, k, v)
+    assert got.stride() == q.stride()
+    want = tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                     v.contiguous())
+    atol, rtol = cases.ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,T,D,pos,off", cases.DECODE_GRID)
+def test_flash_decode_vs_plain(cuda, B, H, Hkv, T, D, pos, off, dtype):
+    rng = np.random.RandomState(T + D + pos)
+    q = cases.randn(rng, (B, H, D), cuda, dtype)
+    kc = cases.randn(rng, (B, T, Hkv, D), cuda, dtype)
+    vc = cases.randn(rng, (B, T, Hkv, D), cuda, dtype)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["flash_decode_partial"]
+    got = ops.flash_decode_partial(q, kc, vc, pos_t, kv_offset=off)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_decode_partial"] == before + 1
+    want = tfd.flash_decode_plain(q, kc, vc, pos_t, kv_offset=off)
+    for g, w, tol in zip(got, want, cases.DECODE_TOL):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+    if off > pos:
+        o, l, m = got
+        assert not o.any() and not l.any() and bool((m == -1e30).all())
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_bad_input(cuda):
+    q = torch.zeros(1, 2, 8, 48, device=cuda)          # D = 48
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_decode_partial(q[:, :, 0], q.transpose(1, 2)[:, ::2],
+                                 q.transpose(1, 2)[:, ::2], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(num_kv_heads=3), dict(num_kv_heads=1),
+    dict(num_kv_heads=1, pad_heads_to=6, attn_bias=True, qk_norm=True)],
+    ids=["G1", "G3", "options"])
+def test_lm_on_card_matches_cpu(cuda, kw):
+    cfg = smollm_135m.REDUCED.replace(**kw, dtype="float32",
+                                      param_dtype="float32")
+    model = DecoderLM(cfg)
+    gen = torch.Generator().manual_seed(3)       # biases, norms act too
+    params = tree_map(lambda t: t + 0.1 * torch.randn(t.shape, generator=gen),
+                      model.init(0, device="cpu"))
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 40))
+    cpu_logits, _ = model.prefill(params, {"tokens": torch.from_numpy(toks)})
+    want = LMServingEngine(model, params, cache_len=64,
+                           device="cpu").generate(toks, steps=6)
+    dev_params = tree_map(lambda t: t.to(cuda), params)
+    logits, _ = model.prefill(dev_params,
+                              {"tokens": torch.from_numpy(toks).to(cuda)})
+    torch.testing.assert_close(logits.cpu(), cpu_logits, atol=1e-4,
+                               rtol=1e-4)
+    ops.reset_launches()
+    got = LMServingEngine(model, dev_params, cache_len=64).generate(toks,
+                                                                   steps=6)
+    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert ops.LAUNCHES["flash_decode_partial"] == cfg.num_layers * 6
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_decode_step_makes_no_host_sync(cuda):
+    """``pos`` stays on the device and the cache is written in place: a
+    decode step never waits for the card (sync debug mode raises on any
+    operation that would)."""
+    model = DecoderLM(smollm_135m.REDUCED.replace(num_kv_heads=1))
+    params = model.init(0, device=cuda)
+    toks = torch.randint(0, 256, (2, 24), device=cuda, dtype=torch.int32)
+    logits, cache = model.prefill(params, {"tokens": toks}, cache_len=32)
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            logits, cache = model.decode_step(params, cache, {"tokens": tok})
+            tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(cache["pos"]) == 25

@@ -10,12 +10,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import rm1
+from repro_torch.configs import rm1, smollm_135m
 from repro_torch.data.queries import dlrm_request_stream
 from repro_torch.launch import serve
 from repro_torch.models.dlrm import DLRMModel
+from repro_torch.models.transformer import DecoderLM, params_from_reference
 from repro_torch.serving.cluster import ClusterEngine
-from repro_torch.serving.engine import DLRMServingEngine, Request
+from repro_torch.serving.engine import (DLRMServingEngine, LMServingEngine,
+                                        Request)
 from repro_torch.serving.scenario import ScenarioSpec, run_scenario
 
 REPO = Path(__file__).resolve().parents[1]
@@ -45,7 +47,8 @@ def test_port_never_imports_jax_or_reference(path):
 def test_port_imports_load_no_jax_module():
     code = ("import sys\n"
             "import repro_torch.launch.serve, repro_torch.serving.cluster,"
-            " repro_torch.serving.scenario\n"
+            " repro_torch.serving.scenario, repro_torch.models.transformer,"
+            " repro_torch.models.registry\n"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -86,3 +89,20 @@ def test_explicit_cpu_runs(no_cuda):
     out = eng.serve(reqs)
     assert [r.rid for r in out] == [0, 1, 2]
     assert all(np.isfinite(r.outputs).all() for r in out)
+
+
+def test_lm_entry_points_without_device_raise(no_cuda):
+    model = DecoderLM(smollm_135m.REDUCED)
+    params = model.init(0, device="cpu")
+    calls = [
+        lambda: model.init(0),
+        lambda: LMServingEngine(model, params),
+        lambda: params_from_reference({"embed": np.zeros((2, 2))}),
+        lambda: serve.main(["--arch", "smollm-135m"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    eng = LMServingEngine(model, params, cache_len=24, device="cpu")
+    out = eng.generate(np.zeros((1, 4), np.int32), steps=2)
+    assert out.shape == (1, 2) and out.dtype == np.int32

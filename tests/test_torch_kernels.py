@@ -128,8 +128,32 @@ def test_cpu_path_counts_no_launch():
     tables, idx = _case(2, 20, 8, 3, 4)
     tops.embedding_bag_fused(torch.from_numpy(tables), torch.from_numpy(idx))
     tops.embedding_bag_nmp(torch.from_numpy(tables), torch.from_numpy(idx))
+    q = torch.zeros(1, 2, 8, 16)
+    tops.flash_attention(q, q, q)
+    tops.flash_decode_partial(q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2),
+                              3)
     assert tops.LAUNCHES == {"embedding_bag_fused_flat": 0,
-                             "embedding_bag_nmp_flat": 0}
+                             "embedding_bag_nmp_flat": 0,
+                             "flash_attention": 0,
+                             "flash_decode_partial": 0}
+
+
+@pytest.mark.parametrize("wrapper", ["embedding_bag_fused_flat",
+                                     "embedding_bag_nmp_flat"])
+def test_out_of_range_rows_read_the_last_row(wrapper):
+    """A row past the flat table's end reads its last row, as the
+    reference's kernels do in interpret mode."""
+    flat = np.arange(40, dtype=np.float32).reshape(10, 4)
+    offsets = np.array([0, 5], np.int32)
+    idx = np.array([[[1, 7, -1], [2, 9, -1]]], np.int32)
+    want = np.asarray(getattr(jops, wrapper)(
+        jnp.asarray(flat), jnp.asarray(offsets), jnp.asarray(idx)))
+    np.testing.assert_array_equal(
+        want, [[[32, 34, 36, 38], [64, 66, 68, 70]]])
+    got = getattr(tops, wrapper)(torch.from_numpy(flat),
+                                 torch.from_numpy(offsets),
+                                 torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("wrapper", ["embedding_bag_fused_flat",
@@ -142,3 +166,13 @@ def test_non_cpu_tensor_launches_or_raises(wrapper):
     idx = torch.zeros(3, 2, 4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         getattr(tops, wrapper)(flat, offsets, idx)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention",
+                                     "flash_decode_partial"])
+def test_attention_off_cpu_launches_or_raises(wrapper):
+    q = torch.empty(1, 2, 8, 16, device="meta")
+    args = ((q, q, q) if wrapper == "flash_attention"
+            else (q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2), 3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(tops, wrapper)(*args)

@@ -84,7 +84,7 @@ def test_cli_cluster_and_single_unit(capsys):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             serve.main(["--cluster", "--device", "cpu"] + flags)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve.main(["--arch", "smollm-135m", "--device", "cpu"])
+        serve.main(["--arch", "qwen3-4b", "--device", "cpu"])
 
 
 def test_report_fields_are_the_references():
