@@ -37,7 +37,16 @@ with a non-zero exit and no result line):
    wall time, and the top kernels and host ops;
 7. single unit: ``DLRMServingEngine(use_kernel=True)`` over the whole
    (800, 40000, 128) bank, which needs 64-bit row addresses;
-8. lm: smollm-135m at its published widths, nothing cut (30 layers,
+8. sharded: the table-sharded lookup ``core.sharding.disagg_embedding_
+   lookup(mesh=None, use_kernel=True)`` over the whole bank, permuted by
+   ``greedy_table_layout(m=4)`` (a second 16.4 GB stack), for a batch of
+   64 from the same request stream: exactly one stacked-bag launch, the
+   pooled output bitwise equal to the fused kernel's over the unpermuted
+   bank and to the plain version, equal scores; the kernel on a bf16
+   copy of 64 tables bitwise equal to its plain version; its time beside
+   its bytes bound, its plain version and one
+   ``torch.nn.functional.embedding_bag`` call; peak device memory;
+9. lm: smollm-135m at its published widths, nothing cut (30 layers,
    d 576, 9 heads over 3 kv heads, head_dim 64, d_ff 1536, vocab 49152,
    tied, bf16), through ``LMServingEngine.generate``: batch 8, a
    1024-token seeded prompt, a 2048-slot cache, 64 decode steps.  The
@@ -87,7 +96,12 @@ LM_KERNELS = {
     "flash_decode_partial": ("src/repro/kernels/flash_decode.py:61",
                              "src/repro_torch/kernels/csrc/flash_decode.cu"),
 }
+ROW_KERNELS = dict(LM_KERNELS, embedding_bag=(
+    "src/repro/kernels/embedding_bag.py:37",
+    "src/repro_torch/kernels/csrc/embedding_bag.cu"))
 SOURCES = ["embedding_bag", "flash_attention", "flash_decode"]
+SHARDED_BATCH = 64             # bags per table in the sharded phase
+CARD_BYTES = 80e9              # the H100's device memory
 LM_BATCH, LM_PROMPT, LM_CACHE, LM_STEPS = 8, 1024, 2048, 64
 
 
@@ -212,6 +226,22 @@ def median_ms(fn, iters: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bag_library(flat, offsets, idx):
+    """The library yardstick of the bag kernels: one
+    ``torch.nn.functional.embedding_bag(mode="sum")`` call over the same
+    flat table, reading row offsets[t] + idx of each valid slot; returns
+    a function that gives the pooled (B, T, D)."""
+    B, T, _ = idx.shape
+    valid = idx >= 0
+    ids = (offsets.to(torch.int64)[None, :, None]
+           + idx.to(torch.int64))[valid]
+    counts = valid.sum(dim=2).reshape(-1)
+    bag_off = torch.zeros_like(counts)
+    bag_off[1:] = torch.cumsum(counts, 0)[:-1]
+    return lambda: torch.nn.functional.embedding_bag(
+        ids, flat, bag_off, mode="sum").reshape(B, T, flat.shape[1])
+
+
 def time_kernel(name, flat, offsets, idx, launches, card):
     """Time one kernel at one main-path launch's exact inputs."""
     from repro_torch.kernels import ops
@@ -223,19 +253,9 @@ def time_kernel(name, flat, offsets, idx, launches, card):
     assert torch.equal(out, plain), (name, err)
     B, T, P = idx.shape
     D = flat.shape[1]
-    valid = idx >= 0
-    n_valid = int(valid.sum())
-    # library yardstick: one embedding_bag call over the same flat table
-    ids = (offsets.to(torch.int64)[None, :, None]
-           + idx.to(torch.int64))[valid]
-    counts = valid.sum(dim=2).reshape(-1)
-    bag_off = torch.zeros_like(counts)
-    bag_off[1:] = torch.cumsum(counts, 0)[:-1]
-
-    def library():
-        return torch.nn.functional.embedding_bag(ids, flat, bag_off,
-                                                 mode="sum")
-    lib_err = float((library().reshape(B, T, D) - out).abs().max())
+    n_valid = int((idx >= 0).sum())
+    library = bag_library(flat, offsets, idx)
+    lib_err = float((library() - out).abs().max())
     ms = median_ms(lambda: kernel(flat, offsets, idx), iters=50)
     plain_ms = median_ms(lambda: embedding_bag_flat_plain(flat, offsets, idx),
                          iters=5, warmup=1)
@@ -422,8 +442,8 @@ def kernel_row(name, ms, plain_ms, library_ms, err, launches, nbytes, flops,
                ops_per_s):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / ops_per_s * 1e3
-    return {"name": name, "route": "cuda", "source": LM_KERNELS[name][1],
-            "replaces": LM_KERNELS[name][0], "launches": launches,
+    return {"name": name, "route": "cuda", "source": ROW_KERNELS[name][1],
+            "replaces": ROW_KERNELS[name][0], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -518,6 +538,96 @@ def time_decode(q, kc, vc, pos, kw, launches, card):
         library="scaled_dot_product_attention over cache[:, :pos+1] "
                 "(normalised output: kernel plus combine)",
         card=card)))
+    return row
+
+
+def sharded_phase(dev, cfg, model, params, reqs, card):
+    """RM1 V0's table-sharded lookup on one card (the reference's
+    single-host branch): lays the bank out with the greedy allocator,
+    pools through the stacked kernel, holds the result against the fused
+    kernel and the plain version, and times the kernel; returns its
+    row."""
+    from repro_torch.core.sharding import (disagg_embedding_lookup,
+                                           greedy_table_layout)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.embedding_bag import embedding_bag_stacked_plain
+    batch = {k: torch.from_numpy(np.concatenate(
+        [r.payload[k] for r in reqs])[:SHARDED_BATCH]).to(dev)
+        for k in ("dense", "indices")}
+    idx = batch["indices"]
+    assert idx.shape[0] == SHARDED_BATCH, idx.shape
+    embed = params["embed"]
+    fused = ops.embedding_bag_fused(embed, idx)           # kernel #1
+    perm, inv, _, _ = greedy_table_layout(cfg, m=4)
+    perm_t = torch.from_numpy(perm).to(dev, torch.int64)
+    inv_t = torch.from_numpy(inv).to(dev, torch.int64)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stack = embed[perm_t]                          # MN-ordered stack
+    idx_p = idx[:, perm_t].contiguous()
+    ops.reset_launches()
+    pooled = disagg_embedding_lookup(stack, idx_p, mesh=None,
+                                     use_kernel=True)[:, inv_t]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert launches["embedding_bag"] == 1, launches
+    assert sum(launches.values()) == 1, launches
+    assert peak_gb * 1e9 < CARD_BYTES, peak_gb
+    assert torch.equal(pooled, fused)
+    plain = embedding_bag_stacked_plain(stack, idx_p)
+    assert torch.equal(plain[:, inv_t], pooled)
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    scores = model.dense_forward(params, batch["dense"], pooled)
+    want = model.dense_forward(params, batch["dense"], fused)
+    assert torch.equal(scores, want)
+    assert bool(torch.isfinite(scores).all())
+    valid = idx_p >= 0
+    n_valid = int(valid.sum())
+    log(f"[sharded] disagg_embedding_lookup(mesh=None, use_kernel=True) "
+        f"over the {tuple(stack.shape)} stack in greedy_table_layout(m=4) "
+        f"order, batch {SHARDED_BATCH}, {n_valid} valid slots "
+        f"({n_valid / valid[..., 0].numel():.1f} per bag): launches "
+        f"{launches}; pooled output bitwise equal to the fused kernel's "
+        f"over the unpermuted bank and to the plain version; scores "
+        f"bitwise equal; peak device memory {peak_gb:.3f} GB (layout and "
+        f"lookup), {plain_peak_gb:.3f} GB with the plain version; {card}")
+    del plain, scores, want, fused
+
+    t16 = stack[:64].to(torch.bfloat16)
+    i16 = idx_p[:, :64].contiguous()
+    got16 = ops.embedding_bag(t16, i16)
+    assert got16.dtype == torch.bfloat16
+    assert torch.equal(got16, embedding_bag_stacked_plain(t16, i16))
+    log(f"[sharded] bf16 copy of 64 tables {tuple(t16.shape)}: the kernel "
+        f"bitwise equal to its plain version")
+    del t16, i16, got16
+
+    out = ops.embedding_bag(stack, idx_p)
+    err = float((out - embedding_bag_stacked_plain(stack, idx_p)).abs()
+                .max())
+    T, R, D = stack.shape
+    # the (T*R, D) view, each valid slot's row clamped into its table
+    library = bag_library(
+        stack.view(T * R, D),
+        torch.arange(T, dtype=torch.int32, device=dev) * R,
+        idx_p.clamp(max=R - 1))
+    lib_err = float((library() - out).abs().max())
+    ms = median_ms(lambda: ops.embedding_bag(stack, idx_p), iters=50)
+    plain_ms = median_ms(lambda: embedding_bag_stacked_plain(stack, idx_p),
+                         iters=5, warmup=1)
+    library_ms = median_ms(library, iters=50)
+    B, _, P = idx_p.shape
+    nbytes = (n_valid * D * stack.element_size() + B * T * P * 4
+              + B * T * D * stack.element_size())
+    row = kernel_row("embedding_bag", ms, plain_ms, library_ms, err,
+                     launches["embedding_bag"], nbytes, n_valid * D,
+                     FP32_OPS_PER_S)
+    log("[timing] " + json.dumps(dict(
+        row, shape={"B": B, "T": T, "P": P, "D": D, "R": R,
+                    "valid_slots": n_valid},
+        bytes=nbytes, library_max_abs_err=lib_err, card=card)))
     return row
 
 
@@ -788,6 +898,9 @@ def main() -> int:
         f"launches {unit_launches}; the fused kernel over the whole "
         f"{tuple(params['embed'].shape)} bank (64-bit rows) is bitwise "
         f"equal to the slot-order reference")
+
+    # ------------------------------------------------------------ sharded
+    rows.append(sharded_phase(dev, cfg, model, params, reqs, card))
     del unit, out, whole, params, model
     gc.collect()
     torch.cuda.empty_cache()

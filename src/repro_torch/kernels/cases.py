@@ -14,7 +14,10 @@ Tolerances, as ``(atol, rtol)`` for ``torch.testing.assert_close``:
   two steps, ``rtol = 2^-6``, with ``atol = 1e-4``.  A dropped,
   repeated or mis-rescaled key tile moves a late row by some per cent
   and fails it (the reference's looser 0.05 would not);
-- flash decode partials: 1e-4 on o and l, 1e-5 on m (all fp32).
+- flash decode partials: 1e-4 on o and l, 1e-5 on m (all fp32);
+- the stacked bag: bitwise, fp32 and bf16 alike (the kernel and its
+  plain version add the same fp32 terms in the same order and round the
+  sum once).
 """
 from __future__ import annotations
 
@@ -26,6 +29,13 @@ BAG_GRID = [(1, 64, 8, 4, 4), (4, 100, 16, 8, 10), (3, 257, 32, 5, 7),
             (2, 128, 128, 16, 20),
             (3, 96, 13, 6, 5),        # D not a multiple of the vector width
             (2, 50, 8, 5, 1)]         # single-slot bags
+
+#: the stacked bag: T, R, D, B, P and how far past each table's end the
+#: rows reach (such a row reads the table's last row)
+STACKED_GRID = [shape + (0,) for shape in BAG_GRID] + [
+    (4, 10, 12, 3, 6, 4),             # rows past the end
+    (3, 96, 13, 6, 5, 8),             # rows past the end, D % 4 != 0
+    (5, 33, 20, 4, 40, 3)]            # P > 32: two index loads per bag
 
 ATTN_GRID = [  # B, H, Hkv, S, T, D
     (2, 4, 4, 128, 128, 64),          # G = 1
@@ -54,3 +64,16 @@ def randn(rng: np.random.RandomState, shape, device,
     ``dtype``."""
     return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
         device, dtype)
+
+
+def bag_idx(rng: np.random.RandomState, R: int, B: int, T: int, P: int,
+            past_end: int = 0) -> np.ndarray:
+    """Indices (B, T, P) int32 into a stack of R-row tables: rows drawn
+    from [0, R + past_end), padding tails of mixed length made of -1 and
+    -7 (any negative slot is padding), and bag (0, 0) all padding."""
+    idx = rng.randint(0, R + past_end, (B, T, P))
+    lens = rng.randint(0, P + 1, (B, T))
+    lens[0, 0] = 0
+    pad = np.where(rng.rand(B, T, P) < 0.5, -1, -7)
+    mask = np.arange(P)[None, None, :] < lens[..., None]
+    return np.where(mask, idx, pad).astype(np.int32)

@@ -19,7 +19,8 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 
 #: kernel name -> launches since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"embedding_bag_fused_flat": 0,
+LAUNCHES: Dict[str, int] = {"embedding_bag": 0,
+                            "embedding_bag_fused_flat": 0,
                             "embedding_bag_nmp_flat": 0,
                             "flash_attention": 0,
                             "flash_decode_partial": 0}
@@ -28,6 +29,18 @@ LAUNCHES: Dict[str, int] = {"embedding_bag_fused_flat": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def embedding_bag(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The table-stack bag (the reference's ``embedding_bag``): tables
+    (T, R, D), idx (B, T, P) int32 -1 padded -> pooled (B, T, D) in the
+    tables' dtype, one launch for the whole stack.  A row past its
+    table's end reads that table's last row."""
+    if tables.device.type == "cpu":
+        return _eb.embedding_bag_stacked_plain(tables, idx)
+    out = _eb.embedding_bag_stacked(tables, idx)
+    LAUNCHES["embedding_bag"] += 1
+    return out
 
 
 def embedding_bag_fused_flat(flat_table: torch.Tensor, offsets: torch.Tensor,

@@ -7,7 +7,14 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.embedding_bag import embedding_bag_flat_plain
+from repro_torch.kernels.embedding_bag import embedding_bag_stacked_sum
+
+
+def _past_end(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, T, P, 1): True where a slot names a row past its table's end,
+    which ``jnp.take`` (the reference's gather, in its default fill mode)
+    reads as NaN."""
+    return (idx >= tables.shape[1]).unsqueeze(-1)
 
 
 def embedding_bag_ref(tables: torch.Tensor, idx: torch.Tensor
@@ -15,22 +22,26 @@ def embedding_bag_ref(tables: torch.Tensor, idx: torch.Tensor
     """tables (T, R, D); idx (B, T, P) int32, -1 padded -> (B, T, D) in
     the tables' dtype.  Sums each bag's slots in one reduction, like
     ``repro.models.dlrm.embedding_bag_ref``; that sum may reassociate, so
-    it is close to, not bitwise equal to, the kernels."""
-    T = tables.shape[0]
+    it is close to, not bitwise equal to, the kernels.  A slot past its
+    table's end makes its bag NaN, as the reference's gather does; the
+    gather itself reads a clamped row, so a CUDA tensor never asserts."""
+    T, R, _ = tables.shape
     valid = (idx >= 0).unsqueeze(-1)
-    safe = idx.clamp(min=0).to(torch.int64)
+    safe = idx.clamp(0, R - 1).to(torch.int64)
     tix = torch.arange(T, device=tables.device)[None, :, None]
-    rows = tables[tix, safe]                                  # (B,T,P,D)
-    return torch.where(valid, rows, 0.0).sum(dim=2)
+    rows = torch.where(valid, tables[tix, safe], 0.0)         # (B,T,P,D)
+    return rows.masked_fill(_past_end(tables, idx), float("nan")).sum(dim=2)
 
 
 def embedding_bag_seq_ref(tables: torch.Tensor, idx: torch.Tensor
                           ) -> torch.Tensor:
     """Order-exact oracle: slots added in ascending order into fp32, the
-    order the kernels use, so fp32 results match them bitwise."""
-    T, R, D = tables.shape
-    offsets = torch.arange(T, dtype=torch.int64, device=tables.device) * R
-    return embedding_bag_flat_plain(tables.reshape(T * R, D), offsets, idx)
+    order the kernels use, so fp32 results match them bitwise.  A bag
+    with a slot past its table's end is NaN, as in the reference's
+    ``ref.embedding_bag_seq_ref``."""
+    past = _past_end(tables, idx).any(dim=2)                  # (B,T,1)
+    return embedding_bag_stacked_sum(tables, idx).masked_fill(
+        past, float("nan"))
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,7 +8,8 @@ dependencies:
 
 The bag kernels are held against their plain PyTorch version: fp32
 (and bf16, whose rows widen to fp32 exactly and add in the same order)
-is bitwise equal.  The attention kernels are held against theirs at the
+is bitwise equal; the stacked bag's bf16 output, its fp32 sum rounded
+once, is bitwise equal too.  The attention kernels are held against theirs at the
 shapes and tolerances of ``repro_torch.kernels.cases`` (which
 ``chip_smoke.py`` uses too; its docstring gives the reasons): fp32
 within 2e-5 and bf16 within two bf16 steps of each element for flash
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from repro_torch.configs import rm1, smollm_135m
+from repro_torch.core.sharding import disagg_embedding_lookup
 from repro_torch.data.queries import dlrm_request_stream
 from repro_torch.kernels import cases
 from repro_torch.kernels import embedding_bag as teb
@@ -124,6 +126,71 @@ def test_kernel_out_of_range_rows_read_last_row(cuda, kernel):
     want = torch.tensor([[[32., 34, 36, 38], [64, 66, 68, 70]]], device=cuda)
     assert torch.equal(got, want)
     assert torch.equal(got, teb.embedding_bag_flat_plain(flat, offsets, idx))
+
+
+def _stacked_case(T, R, D, B, P, past_end, dev, dtype):
+    rng = np.random.RandomState(T * 100 + D + past_end)
+    tables = cases.randn(rng, (T, R, D), dev, dtype)
+    idx = cases.bag_idx(rng, R, B, T, P, past_end)
+    return tables, torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,R,D,B,P,past_end", cases.STACKED_GRID)
+def test_stacked_kernel_bitwise_vs_plain(cuda, T, R, D, B, P, past_end,
+                                         dtype):
+    tables, idx = _stacked_case(T, R, D, B, P, past_end, cuda, dtype)
+    before = ops.LAUNCHES["embedding_bag"]
+    got = ops.embedding_bag(tables, idx)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["embedding_bag"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, T, D)
+    assert torch.equal(got, teb.embedding_bag_stacked_plain(tables, idx))
+
+
+@pytest.mark.cuda
+def test_stacked_kernel_row_past_the_end(cuda):
+    """Index 12 of a 10-row table 0 reads table 0's row 9."""
+    tables = torch.arange(80, dtype=torch.float32,
+                          device=cuda).reshape(2, 10, 4)
+    idx = torch.tensor([[[12, -1], [3, -5]]], dtype=torch.int32, device=cuda)
+    got = ops.embedding_bag(tables, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.stack([tables[0, 9], tables[1, 3]]))
+
+
+@pytest.mark.cuda
+def test_stacked_kernel_refuses_bad_input(cuda):
+    tables, idx = _stacked_case(2, 50, 8, 5, 3, 0, cuda, torch.float32)
+    with pytest.raises(ValueError, match="int32"):
+        ops.embedding_bag(tables, idx.long())
+    with pytest.raises(ValueError, match="lies on"):
+        ops.embedding_bag(tables, idx.cpu())
+    with pytest.raises(ValueError, match=r"\(B, T, P\)"):
+        ops.embedding_bag(tables, idx[:, :1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.embedding_bag(tables, idx.transpose(0, 1))
+    with pytest.raises(ValueError, match="D <= 1024"):
+        ops.embedding_bag(torch.zeros(2, 4, 2048, device=cuda), idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_single_host_lookup_on_card_matches_cpu(cuda, use_kernel):
+    tables, idx = _stacked_case(6, 24, 16, 5, 7, 2, torch.device("cpu"),
+                                torch.float32)
+    want = disagg_embedding_lookup(tables, idx, use_kernel=use_kernel)
+    ops.reset_launches()
+    got = disagg_embedding_lookup(tables.to(cuda), idx.to(cuda),
+                                  use_kernel=use_kernel).cpu()
+    assert ops.LAUNCHES["embedding_bag"] == int(use_kernel)
+    if use_kernel:
+        assert torch.equal(got, want)
+    else:      # NaN in the same bags; one reduction in another order
+        assert torch.equal(got.isnan(), want.isnan())
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6,
+                                   equal_nan=True)
 
 
 @pytest.mark.cuda

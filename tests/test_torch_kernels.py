@@ -128,11 +128,13 @@ def test_cpu_path_counts_no_launch():
     tables, idx = _case(2, 20, 8, 3, 4)
     tops.embedding_bag_fused(torch.from_numpy(tables), torch.from_numpy(idx))
     tops.embedding_bag_nmp(torch.from_numpy(tables), torch.from_numpy(idx))
+    tops.embedding_bag(torch.from_numpy(tables), torch.from_numpy(idx))
     q = torch.zeros(1, 2, 8, 16)
     tops.flash_attention(q, q, q)
     tops.flash_decode_partial(q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2),
                               3)
-    assert tops.LAUNCHES == {"embedding_bag_fused_flat": 0,
+    assert tops.LAUNCHES == {"embedding_bag": 0,
+                             "embedding_bag_fused_flat": 0,
                              "embedding_bag_nmp_flat": 0,
                              "flash_attention": 0,
                              "flash_decode_partial": 0}
