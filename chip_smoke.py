@@ -51,14 +51,18 @@ with a non-zero exit and no result line):
    tied, bf16), through ``LMServingEngine.generate``: batch 8, a
    1024-token seeded prompt, a 2048-slot cache, 64 decode steps.  The
    counters are zeroed just before and read just after: exactly 30
-   flash-attention and 30 x 64 flash-decode launches.  Prefill ms,
+   flash-attention launches, all 30 on the tensor-core (wgmma) kernel,
+   and 30 x 64 flash-decode launches.  Prefill ms,
    decode ms per token, tokens/s and peak memory are printed; each
    kernel is held against its plain version at the inputs of the first
    prefill (and at fp32 copies of them) and of the last decode launch,
    and timed there beside its bound,
-   its plain version and ``scaled_dot_product_attention``; an fp32 copy
-   of the model generates the same tokens through the kernels as
-   through their plain versions.
+   its plain version and ``scaled_dot_product_attention``; the attention
+   row adds the kernel variant, its registers, spills and shared memory
+   (ptxas and the kernel's own layout) and the tensor-work bound with
+   the P split; an fp32 copy of the model (the scalar attention kernel)
+   generates the same tokens through the kernels as through their plain
+   versions.
 
 All timing lives here, never in ``src/`` (the repo's linter bans host
 clocks there).  The line before the last is ``{"kernels": [...]}``; the
@@ -224,6 +228,26 @@ def median_ms(fn, iters: int, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time per call of ``fn`` over ``iters`` calls back to back.
+    A sleep kernel holds the stream while the host enqueues them, so the
+    events time the device's work and not the host's dispatch, which
+    ``median_ms`` includes where a call's device work is shorter than its
+    launch path; fails if the host fell behind the device all the same."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    assert not a.query(), "the host fell behind: lengthen the sleep"
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def bag_library(flat, offsets, idx):
@@ -450,12 +474,43 @@ def kernel_row(name, ms, plain_ms, library_ms, err, launches, nbytes, flops,
             "library_ms": library_ms}
 
 
+def ptxas_info(source: str, entry: str):
+    """Registers and spill bytes that ptxas reported (``-v``) for the
+    first kernel of ``csrc/<source>.cu`` whose mangled name contains
+    ``entry``, and whether it serialised that kernel's wgmmas ("Potential
+    Performance Loss"); None when this process did not build the
+    source."""
+    import re
+    from repro_torch.kernels import build
+    log = build.BUILD_LOGS.get(source, "")
+    info, inside = None, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            if info is not None:
+                break
+            inside = entry in line
+            if inside:
+                info = {}
+        elif inside and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            info["spill_bytes"] = int(st) + int(ld)
+        elif inside and "Used" in line and "registers" in line:
+            info["registers"] = int(re.search(r"Used (\d+) registers",
+                                              line).group(1))
+    if info is not None:
+        info["wgmma_serialized"] = any(
+            "Performance Loss" in line and entry in line
+            for line in log.splitlines())
+    return info
+
+
 def time_attention(q, k, v, kw, launches, card):
     """flash_attention at the first prefill launch's inputs, and on fp32
     copies of them (same shapes and strides), each against its plain
     version: bf16 within two bf16 steps of each element, fp32 within
     2e-5 (``repro_torch.kernels.cases``)."""
     from repro_torch.kernels import cases, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_plain
     causal = kw.get("causal", True)
     q32, k32, v32 = q.float(), k.float(), v.float()
@@ -489,7 +544,23 @@ def time_attention(q, k, v, kw, launches, card):
         FP32_OPS_PER_S
     row = kernel_row("flash_attention", ms, plain_ms, library_ms, err,
                      launches, nbytes, flops, ops_per_s)
+    # the same two calls' device time alone, without the host's dispatch
+    row["device_ms"] = device_ms(
+        lambda: ops.flash_attention(q, k, v, causal=causal))
+    row["library_device_ms"] = device_ms(lambda: _sdpa(q, k, v, causal))
     row["fp32_max_abs_err"] = err32     # the same inputs widened to fp32
+    kind = fa.variant(q.dtype, D)
+    row["variant"] = kind
+    if kind == "wgmma":
+        # P V runs twice (P_hi, P_lo): Q K^T plus two P V products
+        row["tensor_bound_ms"] = 1.5 * flops / ops_per_s * 1e3
+        info = ptxas_info("flash_attention", f"fa_wgmma_kernelILi{D}E")
+        row["registers"] = info and info.get("registers")
+        row["spill_bytes"] = info and info.get("spill_bytes")
+        row["smem_bytes"] = fa.wgmma_smem_bytes(D)
+        row["wgmma_serialized"] = info and info["wgmma_serialized"]
+        assert info is None or (info["spill_bytes"] == 0
+                                and not info["wgmma_serialized"]), info
     log("[timing] " + json.dumps(dict(
         row, shape={"B": B, "H": H, "Hkv": Hkv, "S": S, "T": T, "D": D,
                     "causal": causal, "dtype": str(q.dtype)},
@@ -664,6 +735,7 @@ def lm_phase(dev, card):
     """smollm-135m at full width through LMServingEngine; returns the
     two attention kernels' rows."""
     from repro_torch.configs import smollm_135m
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.models.params import tree_leaves, tree_map
@@ -695,6 +767,7 @@ def lm_phase(dev, card):
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_s = total_s - probe.prefill_s
     log(f"[lm] generate: batch {LM_BATCH}, prompt {LM_PROMPT}, cache "
@@ -705,6 +778,8 @@ def lm_phase(dev, card):
         f"generated tokens/s; whole generate {total_s * 1e3:.1f} ms; peak "
         f"device memory {peak_gb:.3f} GB; {card}")
     assert launches["flash_attention"] == cfg.num_layers, launches
+    assert variants == {"wgmma": cfg.num_layers, "scalar": 0}, variants
+    log(f"[lm] flash-attention launches by kernel: {variants}")
     assert launches["flash_decode_partial"] == cfg.num_layers * LM_STEPS, \
         launches
     assert launches["embedding_bag_fused_flat"] == 0
@@ -751,6 +826,8 @@ def lm_phase(dev, card):
     tok_k = LMServingEngine(model32, params32, cache_len=128,
                             device=dev).generate(small, steps=8)
     assert ops.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+    assert fa.VARIANT_LAUNCHES == {"wgmma": 0,
+                                   "scalar": 2 * cfg.num_layers}
     assert ops.LAUNCHES["flash_decode_partial"] == 8 * cfg.num_layers
     with PlainAttention():
         logits_p, _ = model32.prefill(params32, batch, cache_len=128)
@@ -788,6 +865,8 @@ def main() -> int:
 
     # -------------------------------------------------------------- build
     t0 = time.perf_counter()
+    for name in SOURCES:       # build from the checkout's sources, always
+        build.library_path(name).unlink(missing_ok=True)
     build.build(SOURCES)
     for name in SOURCES:
         build.load(name)
@@ -795,7 +874,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     for name in SOURCES:
         for line in build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "arning", "Performance Loss")):
                 log(f"[build] {name}: {line.strip()}")
 
     # ------------------------------------------------------------ kernels

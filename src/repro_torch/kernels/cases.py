@@ -13,7 +13,9 @@ Tolerances, as ``(atol, rtol)`` for ``torch.testing.assert_close``:
   one bf16 step (2^-7 of its size) plus the fp32 difference; held at
   two steps, ``rtol = 2^-6``, with ``atol = 1e-4``.  A dropped,
   repeated or mis-rescaled key tile moves a late row by some per cent
-  and fails it (the reference's looser 0.05 would not);
+  and fails it (the reference's looser 0.05 would not).  The
+  tensor-core kernel takes p in two bf16 terms (hi + lo) to stay within
+  it: p rounded once to bf16 would not (``tests/test_torch_kernels.py``);
 - flash decode partials: 1e-4 on o and l, 1e-5 on m (all fp32);
 - the stacked bag: bitwise, fp32 and bf16 alike (the kernel and its
   plain version add the same fp32 terms in the same order and round the
@@ -44,6 +46,12 @@ ATTN_GRID = [  # B, H, Hkv, S, T, D
     (1, 2, 2, 150, 40, 128),          # S > T
     (1, 2, 2, 150, 40, 32),           # D = 32
     (8, 9, 3, 1024, 1024, 64),        # smollm-135m's full-width prefill
+    # the edges of the tensor-core kernel's 128-row q and 64-key tiles
+    (1, 4, 2, 1, 300, 64),            # S = 1, T = 300
+    (1, 3, 1, 100, 300, 64),          # T % 64 != 0, S < T
+    (1, 3, 1, 300, 200, 64),          # T % 64 != 0, S > T
+    (2, 4, 2, 190, 256, 128),         # D = 128, ragged S
+    (1, 6, 2, 129, 129, 64),          # G = 3, a second q tile of one row
 ]
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -6)}
 

@@ -27,8 +27,11 @@ LAUNCHES: Dict[str, int] = {"embedding_bag": 0,
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero ``LAUNCHES`` and the attention kernels' per-variant counts
+    (``flash_attention.VARIANT_LAUNCHES``)."""
+    for counts in (LAUNCHES, _fa.VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def embedding_bag(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -97,7 +100,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_block: int = 128,
                     kv_block: int = 128) -> torch.Tensor:
     """q (B, H, S, D); k, v (B, Hkv, T, D) -> (B, H, S, D) in q's dtype.
-    The block sizes shape the plain version only: the kernel tiles by 64."""
+    The block sizes shape the plain version only: the kernels pick their
+    own tiles (``flash_attention.variant`` says which kernel runs)."""
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          q_block=q_block, kv_block=kv_block)

@@ -13,9 +13,11 @@ once, is bitwise equal too.  The attention kernels are held against theirs at th
 shapes and tolerances of ``repro_torch.kernels.cases`` (which
 ``chip_smoke.py`` uses too; its docstring gives the reasons): fp32
 within 2e-5 and bf16 within two bf16 steps of each element for flash
-attention, 1e-4 on o and l and 1e-5 on m for the decode partials.  The cluster on the card is held against the same cluster on
-the CPU: equal stats, scores within rtol=1e-5, atol=1e-6; the LM on the
-card against the LM on the CPU: fp32 logits within 1e-4, equal tokens.
+attention (bf16 at D 64 and 128 on the tensor-core kernel, the rest on
+the scalar one), 1e-4 on o and l and 1e-5 on m for the decode partials.
+The cluster on the card is held against the same cluster on the CPU:
+equal stats, scores within rtol=1e-5, atol=1e-6; the LM on the card
+against the LM on the CPU: fp32 logits within 1e-4, equal tokens.
 """
 import dataclasses
 
@@ -215,20 +217,72 @@ def test_flash_attention_vs_plain(cuda, B, H, Hkv, S, T, D, causal, dtype):
 
 @pytest.mark.cuda
 def test_flash_attention_strided_views(cuda):
-    """(B, S, H, D) tensors permuted to (B, H, S, D): read in place, and
-    the output keeps the permuted layout."""
+    """(B, S, H, D) tensors permuted to (B, H, S, D) at smollm-135m's
+    full-width prefill shape: read in place (by TMA on the tensor-core
+    kernel), and the output keeps the permuted layout."""
     rng = np.random.RandomState(3)
-    B, S, H, Hkv, D = 2, 96, 6, 2, 64
+    B, S, H, Hkv, D = 8, 1024, 9, 3, 64
     q = cases.randn(rng, (B, S, H, D), cuda, torch.bfloat16).transpose(1, 2)
     k = cases.randn(rng, (B, S, Hkv, D), cuda, torch.bfloat16).transpose(1, 2)
     v = cases.randn(rng, (B, S, Hkv, D), cuda, torch.bfloat16).transpose(1, 2)
+    before = tfa.VARIANT_LAUNCHES["wgmma"]
     got = ops.flash_attention(q, k, v)
+    assert tfa.VARIANT_LAUNCHES["wgmma"] == before + 1
     assert got.stride() == q.stride()
     want = tfa.flash_attention_plain(q.contiguous(), k.contiguous(),
                                      v.contiguous())
     atol, rtol = cases.ATTN_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_single_tile(cuda, D):
+    """One CTA on one 128 x 128 tile, not causal: the first check of the
+    tensor-core kernel's TMA swizzle and wgmma descriptors, which give
+    plausible wrong numbers when they disagree."""
+    rng = np.random.RandomState(D)
+    q, k, v = (cases.randn(rng, (1, 1, 128, D), cuda, torch.bfloat16)
+               for _ in range(3))
+    before = tfa.VARIANT_LAUNCHES["wgmma"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES["wgmma"] == before + 1
+    want = tfa.flash_attention_plain(q, k, v, causal=False)
+    atol, rtol = cases.ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,kind", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "scalar"), (torch.float32, 64, "scalar"),
+    (torch.float32, 128, "scalar")])
+def test_flash_attention_variant_launched(cuda, dtype, D, kind):
+    """bf16 at D in {64, 128} launches the tensor-core kernel, anything
+    else the scalar one: one launch, counted once, on the right kernel."""
+    q = torch.randn(1, 2, 40, D, device=cuda).to(dtype)
+    ops.reset_launches()
+    ops.flash_attention(q, q[:, :1], q[:, :1])
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES == {"wgmma": int(kind == "wgmma"),
+                                    "scalar": int(kind == "scalar")}
+    assert ops.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_tma_unfit_views(cuda):
+    """The tensor-core kernel reads through TMA and never copies: a view
+    TMA cannot take is refused before any launch."""
+    x = torch.zeros(1, 2, 8, 68, device=cuda, dtype=torch.bfloat16)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(x[..., 1:65], x[..., :64], x[..., :64])
+    with pytest.raises(ValueError, match="stride 68"):
+        ops.flash_attention(x[..., :64], x[..., :64], x[..., :64])
+    assert sum(tfa.VARIANT_LAUNCHES.values()) == 0
 
 
 @pytest.mark.cuda

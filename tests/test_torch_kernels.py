@@ -6,8 +6,12 @@ versions the wrappers take for CPU tensors).  fp32 pooled outputs are
 bitwise equal; bf16 agrees within the reference's 0.1; the one-reduction
 ``embedding_bag_ref`` reassociates its sum, so it is held to 1e-6.
 The CUDA kernels themselves are held against these plain versions on
-the card by ``tests/test_torch_cuda.py``.
+the card by ``tests/test_torch_cuda.py``.  For the tensor-core attention
+kernel, which no CPU can run, its arithmetic is emulated in torch here
+and held to the card tolerance against the plain version.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +19,8 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import cases as tcases
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -178,3 +184,97 @@ def test_attention_off_cpu_launches_or_raises(wrapper):
             else (q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2), 3))
     with pytest.raises(ValueError, match="CUDA tensors"):
         getattr(tops, wrapper)(*args)
+
+
+# ------------------------------------------- flash attention's tensor cores
+
+def _tc_recipe(q, k, v, causal, split=True, tile=128):
+    """The tensor-core kernel's arithmetic (``fa_forward_wgmma``) in
+    torch: S = Q K^T from bf16 inputs summed in fp32, an online softmax
+    per 128-key tile with ``exp2`` and ``scale * log2(e)`` folded in,
+    P = P_hi + P_lo in two bf16 terms (or, with ``split=False``, P
+    rounded once to bf16), each P term times V summed in fp32, the
+    output rounded to bf16 once."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    c = (torch.tensor(1.0 / math.sqrt(D))
+         * torch.tensor(1.4426950408889634))             # fp32, as the card
+    qf = q.float().reshape(B, Hkv, H // Hkv, S, D)
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(qf)
+    for q0 in range(0, S, tile):
+        q1 = min(q0 + tile, S)
+        rows = torch.arange(q0, q1)[:, None]
+        m = torch.full(qf[:, :, :, q0:q1, :1].shape, -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qf[:, :, :, q0:q1])
+        for n0 in range(0, min(T, q1) if causal else T, tile):
+            n1 = min(n0 + tile, T)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, :, q0:q1],
+                             kf[:, :, n0:n1])
+            if causal:
+                s = torch.where(rows >= torch.arange(n0, n1), s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp2((m - m_new) * c)
+            p = torch.exp2(s * c - m_new * c)
+            l = l * corr + p.sum(-1, keepdim=True)
+            m = m_new
+            hi = p.bfloat16().float()
+            terms = [hi, (p - hi).bfloat16().float()] if split else [hi]
+            acc = acc * corr + sum(torch.einsum("bhgqk,bhkd->bhgqd", t,
+                                                vf[:, :, n0:n1])
+                                   for t in terms)
+        out[:, :, :, q0:q1] = acc / l.clamp(min=1e-37)
+    return out.reshape(B, H, S, D).bfloat16()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,H,Hkv,S,T,D", [
+    c for c in tcases.ATTN_GRID if c[5] in tfa.WGMMA_HEAD_DIMS])
+def test_tensor_core_recipe_needs_p_split(B, H, Hkv, S, T, D, causal):
+    """Why the tensor-core kernel runs P V twice: with P in two bf16
+    terms its arithmetic stays within the card tolerance of the plain
+    version on every bf16 case it takes; with P rounded once to bf16 it
+    misses that tolerance on every one of them but S = 1 under the causal
+    mask, whose one live key has p = 1, exact in bf16."""
+    rng = np.random.RandomState(S + T + D)
+    q = tcases.randn(rng, (B, H, S, D), "cpu", torch.bfloat16)
+    k = tcases.randn(rng, (B, Hkv, T, D), "cpu", torch.bfloat16)
+    v = tcases.randn(rng, (B, Hkv, T, D), "cpu", torch.bfloat16)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal).float()
+    atol, rtol = tcases.ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(_tc_recipe(q, k, v, causal).float(), want,
+                               atol=atol, rtol=rtol)
+    once = _tc_recipe(q, k, v, causal, split=False).float()
+    missed = bool(((once - want).abs() > atol + rtol * want.abs()).any())
+    assert missed == (S > 1 or not causal)
+
+
+@pytest.mark.parametrize("dtype,D,kind", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 16, "scalar"),
+    (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar")])
+def test_attention_variant_by_dtype_and_head_dim(dtype, D, kind):
+    assert tfa.variant(dtype, D) == kind
+
+
+def test_tma_strides_in_place_or_refused():
+    """The layers' (B, S, H, D) -> (B, H, S, D) view goes to TMA as it
+    is; an axis of size 1 takes any stride; a misaligned pointer or a
+    stride TMA cannot take is refused, never copied."""
+    x = torch.zeros(2, 16, 9, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert tfa.tma_strides("q", x) == [16 * 9 * 64, 64, 9 * 64]
+    one = torch.zeros(1, 3, 5, 64, dtype=torch.bfloat16)[:, :1]
+    assert tfa.tma_strides("k", one) == [64, 64, 64]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.tma_strides("q", torch.zeros(2, 2, 8, 65,
+                                         dtype=torch.bfloat16)[..., 1:])
+    with pytest.raises(ValueError, match="stride 65"):
+        tfa.tma_strides("v", torch.zeros(2, 2, 8, 65,
+                                         dtype=torch.bfloat16)[..., :64])
+
+
+def test_reset_zeroes_variant_counts():
+    tfa.VARIANT_LAUNCHES["wgmma"] += 3
+    tops.reset_launches()
+    assert tfa.VARIANT_LAUNCHES == {"wgmma": 0, "scalar": 0}
