@@ -18,9 +18,11 @@ with a non-zero exit and no result line):
    ``repro_torch.kernels.cases`` (shared with the card tests): flash
    attention causal and not, G in {1, 3}, D in {32, 64, 128}, ragged S
    and T, and smollm-135m's full-width prefill shape (fp32 within 2e-5,
-   bf16 within two bf16 steps of each element), flash decode with pos in
-   the first, a middle and the last block, kv_offset > 0 and a slice
-   wholly after pos (1e-4 on o and l, 1e-5 on m);
+   bf16 within two bf16 steps of each element), flash decode at the
+   split-KV kernel's edges (pos at 0, mid-cache, at the last row and
+   past T, kv_offset > 0 and a slice wholly after pos, one split and the
+   most splits, G from 1 to 16, D 16 to 128, smollm-135m's last decode
+   launch; 1e-4 on o and l, 1e-5 on m);
 4. serve: RM1 V0 at its published widths, only ``rows_per_table`` cut
    (3,417,969 -> 40,000, so the embedding bank fits one card), through
    ``run_scenario`` on the CLI's cluster (2 CNs, 4 MNs as
@@ -31,7 +33,8 @@ with a non-zero exit and no result line):
    bitwise-equal scores;
 5. timing: each kernel at the exact inputs one main-path launch gave it,
    beside its bytes bound, its plain version and one
-   ``torch.nn.functional.embedding_bag`` call as a library yardstick;
+   ``torch.nn.functional.embedding_bag`` call as a library yardstick,
+   each by single-launch median and back to back (``device_ms``);
 6. trace: the same serve once more under ``torch.profiler``: the
    device's busy time per batch, its idle share of the untraced serve's
    wall time, and the top kernels and host ops;
@@ -60,7 +63,10 @@ with a non-zero exit and no result line):
    its plain version and ``scaled_dot_product_attention``; the attention
    row adds the kernel variant, its registers, spills and shared memory
    (ptxas and the kernel's own layout) and the tensor-work bound with
-   the P split; an fp32 copy of the model (the scalar attention kernel)
+   the P split; the decode row its split count and grid, registers,
+   spills and shared memory (failing on a spill), two launches bitwise
+   equal and the host time per call of the wrapper and of SDPA (the
+   eager decode step is paced by the host); an fp32 copy of the model (the scalar attention kernel)
    generates the same tokens through the kernels as through their plain
    versions.
 
@@ -250,6 +256,24 @@ def device_ms(fn, iters: int = 50) -> float:
     return a.elapsed_time(b) / iters
 
 
+def host_ms(fn, iters: int = 100) -> float:
+    """Host time per call of ``fn``: its checks, allocations and launch
+    enqueue, with a sleep kernel holding the stream so that no call
+    waits for the device; fails if the device caught up all the same."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    done = torch.cuda.Event()
+    done.record()
+    assert not done.query(), "the device caught up: lengthen the sleep"
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
 def bag_library(flat, offsets, idx):
     """The library yardstick of the bag kernels: one
     ``torch.nn.functional.embedding_bag(mode="sum")`` call over the same
@@ -284,6 +308,8 @@ def time_kernel(name, flat, offsets, idx, launches, card):
     plain_ms = median_ms(lambda: embedding_bag_flat_plain(flat, offsets, idx),
                          iters=5, warmup=1)
     library_ms = median_ms(library, iters=50)
+    dev_ms = device_ms(lambda: kernel(flat, offsets, idx))
+    library_dev_ms = device_ms(library)
     nbytes = (n_valid * D * flat.element_size() + B * T * P * 4 + T * 4
               + B * T * D * 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -294,7 +320,8 @@ def time_kernel(name, flat, offsets, idx, launches, card):
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms}
+           "library_ms": library_ms, "device_ms": dev_ms,
+           "library_device_ms": library_dev_ms}
     log("[timing] " + json.dumps(dict(
         row, shape={"B": B, "T": T, "P": P, "D": D,
                     "shard_rows": flat.shape[0], "valid_slots": n_valid},
@@ -475,11 +502,11 @@ def kernel_row(name, ms, plain_ms, library_ms, err, launches, nbytes, flops,
 
 
 def ptxas_info(source: str, entry: str):
-    """Registers and spill bytes that ptxas reported (``-v``) for the
-    first kernel of ``csrc/<source>.cu`` whose mangled name contains
-    ``entry``, and whether it serialised that kernel's wgmmas ("Potential
-    Performance Loss"); None when this process did not build the
-    source."""
+    """Registers, spill bytes and static shared memory that ptxas
+    reported (``-v``) for the first kernel of ``csrc/<source>.cu`` whose
+    mangled name contains ``entry``, and whether it serialised that
+    kernel's wgmmas ("Potential Performance Loss"); None when this
+    process did not build the source."""
     import re
     from repro_torch.kernels import build
     log = build.BUILD_LOGS.get(source, "")
@@ -497,6 +524,8 @@ def ptxas_info(source: str, entry: str):
         elif inside and "Used" in line and "registers" in line:
             info["registers"] = int(re.search(r"Used (\d+) registers",
                                               line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            info["static_smem_bytes"] = int(smem.group(1)) if smem else 0
     if info is not None:
         info["wgmma_serialized"] = any(
             "Performance Loss" in line and entry in line
@@ -573,14 +602,18 @@ def time_attention(q, k, v, kw, launches, card):
 def time_decode(q, kc, vc, pos, kw, launches, card):
     """flash_decode_partial at the last decode launch's inputs.  The
     library yardstick, SDPA over cache[:, :pos+1], computes the
-    normalised output: the kernel's partials plus the combine."""
+    normalised output: the kernel's partials plus the combine.  Two
+    launches must be bitwise equal (the splits merge in a fixed order)."""
     from repro_torch.kernels import cases, ops
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.models.layers import combine_partials
     got = ops.flash_decode_partial(q, kc, vc, pos, **kw)
     want = flash_decode_plain(q, kc, vc, pos, **kw)
     for g, w, tol in zip(got, want, cases.DECODE_TOL):
         torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+    again = ops.flash_decode_partial(q, kc, vc, pos, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     B, H, D = q.shape
     T, Hkv = kc.shape[1], kc.shape[2]
@@ -602,6 +635,27 @@ def time_decode(q, kc, vc, pos, kw, launches, card):
         FP32_OPS_PER_S
     row = kernel_row("flash_decode_partial", ms, plain_ms, library_ms, err,
                      launches, nbytes, flops, ops_per_s)
+    # the same calls' device time alone, without the host's dispatch
+    row["device_ms"] = device_ms(
+        lambda: ops.flash_decode_partial(q, kc, vc, pos, **kw))
+    row["library_device_ms"] = device_ms(lambda: _sdpa(qh, kh, vh, False))
+    # the wrapper's host path per call, which paces the eager decode step
+    row["host_ms"] = host_ms(
+        lambda: ops.flash_decode_partial(q, kc, vc, pos, **kw))
+    row["library_host_ms"] = host_ms(lambda: _sdpa(qh, kh, vh, False))
+    splits = fd.num_splits(B, Hkv, T, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    row["splits"] = splits
+    row["grid"] = [splits, Hkv, B]
+    row["deterministic"] = True
+    G = H // Hkv
+    tname = "13__nv_bfloat16" if q.dtype == torch.bfloat16 else "f"
+    info = ptxas_info("flash_decode", f"fd_split_kernelI{tname}Li{D}E"
+                                      f"Li{min(G, 4)}E")
+    row["registers"] = info and info.get("registers")
+    row["spill_bytes"] = info and info.get("spill_bytes")
+    row["smem_bytes"] = info and info.get("static_smem_bytes")
+    assert info is None or info["spill_bytes"] == 0, info
     log("[timing] " + json.dumps(dict(
         row, shape={"B": B, "H": H, "Hkv": Hkv, "T": T, "D": D,
                     "pos": int(pos), "rows_read": n, "dtype": str(q.dtype)},
@@ -695,6 +749,8 @@ def sharded_phase(dev, cfg, model, params, reqs, card):
     row = kernel_row("embedding_bag", ms, plain_ms, library_ms, err,
                      launches["embedding_bag"], nbytes, n_valid * D,
                      FP32_OPS_PER_S)
+    row["device_ms"] = device_ms(lambda: ops.embedding_bag(stack, idx_p))
+    row["library_device_ms"] = device_ms(library)
     log("[timing] " + json.dumps(dict(
         row, shape={"B": B, "T": T, "P": P, "D": D, "R": R,
                     "valid_slots": n_valid},

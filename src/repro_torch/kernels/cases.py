@@ -56,12 +56,24 @@ ATTN_GRID = [  # B, H, Hkv, S, T, D
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -6)}
 
 DECODE_GRID = [  # B, H, Hkv, T, D, pos, kv_offset
-    (2, 4, 4, 256, 64, 10, 0),        # pos in the first block
-    (2, 9, 3, 256, 64, 130, 0),       # a middle block, G = 3
-    (2, 9, 3, 256, 64, 255, 0),       # the last block
+    (2, 4, 4, 256, 64, 10, 0),        # pos early, G = 1
+    (2, 9, 3, 256, 64, 130, 0),       # pos in the middle, G = 3
+    (2, 9, 3, 256, 64, 255, 0),       # pos at the last row
     (3, 6, 2, 200, 128, 150, 0),      # D = 128, ragged T
-    (2, 9, 3, 256, 64, 300, 256),     # kv_offset > 0
+    (2, 9, 3, 256, 64, 300, 256),     # kv_offset > 0, pos cuts the slice
     (2, 9, 3, 256, 64, 100, 256),     # a slice wholly after pos
+    # the edges of the split-KV kernel's cut (flash_decode.num_splits)
+    (8, 9, 3, 2048, 64, 1087, 0),     # smollm-135m's last decode launch
+    (1, 2, 1, 4096, 128, 4095, 0),    # one long group: the most splits
+    (2, 9, 3, 256, 64, 0, 0),         # pos 0: one live row
+    (2, 9, 3, 256, 64, 1000, 0),      # pos past T: every row
+    (2, 6, 2, 300, 32, 299, 0),       # T a multiple of no chunk, D = 32
+    (3, 8, 2, 200, 16, 173, 0),       # D = 16, G = 4
+    (96, 9, 3, 128, 64, 100, 0),      # B * Hkv = 288: one split
+    (2, 32, 4, 512, 128, 300, 0),     # G = 8: two passes of 4 heads
+    (2, 10, 2, 96, 32, 80, 0),        # G = 5: a last pass of 1 head
+    (1, 16, 1, 128, 128, 127, 0),     # G * D = 2048, the widest group
+    (2, 9, 3, 512, 64, 700, 512),     # a second slice that pos cuts
 ]
 DECODE_TOL = (1e-4, 1e-4, 1e-5)       # o, l, m
 

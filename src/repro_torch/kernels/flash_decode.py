@@ -6,22 +6,27 @@ version.
     Pallas kernel of one decode step's attention.  q ``(B, H, D)``, caches
     ``(B, T, Hkv, D)``, a scalar ``pos`` and the slice's ``kv_offset`` ->
     unnormalised ``o (B, H, D)`` and ``l, m (B, H)``, all fp32, over the
-    cache rows at or before ``pos``.  ``m`` starts at ``-1e30``, masked
-    rows score ``-1e30``, and blocks whose first row lies past ``pos`` are
-    skipped, so a slice wholly after ``pos`` gives ``m = -1e30``,
-    ``l = 0`` and ``o = 0`` (where ``layers.decode_attention_local`` of
-    the reference gives ``m = -inf``).
+    cache rows at or before ``pos``.  ``m`` starts at ``-1e30`` and rows
+    past ``pos`` add nothing, so a slice wholly after ``pos`` gives
+    ``m = -1e30``, ``l = 0`` and ``o = 0`` (where
+    ``layers.decode_attention_local`` of the reference gives
+    ``m = -inf``).
 
 Bound on the card: bytes, the cache rows up to ``pos`` read once
-(6.7 MB at smollm-135m's decode with B=8 and pos ~1088: 0.002 ms).  The
-kernel runs one CTA per (kv head, batch row), so the G query heads of a
-group share each K/V row read; at that shape this is only 24 CTAs on 132
-SMs.  The source says more.
+(6.7 MB at smollm-135m's decode with B=8 and pos 1087: 0.002 ms).  The
+kernel splits the cache across CTAs (split-KV): a grid of
+``(splits, Hkv, B)``, ``splits`` from :func:`num_splits` (B * Hkv, T
+and the SM count, never ``pos``), each CTA cutting its share of the
+live rows from ``pos`` on the device and reading them with 16-byte
+loads; the G query heads
+of a kv head share each K/V row read.  With more than one split a
+second kernel merges the splits' partials from an fp32 workspace in
+split order, so the result is deterministic.  The source says more.
 
 ``pos`` stays on the device: the wrapper takes it as an int32 tensor and
 the kernel reads it there, so a decode step makes no host sync for it.
-The kernel's blocks are 64 rows; ``kv_block`` shapes only the plain
-version's blocking, and the results do not depend on it.
+``kv_block`` shapes only the plain version's blocking, and the results
+do not depend on it.
 
 The functions here launch unconditionally; ``kernels.ops`` is the public
 entry that picks the plain version for CPU tensors and counts launches.
@@ -29,6 +34,7 @@ entry that picks the plain version for CPU tensors and counts launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Tuple, Union
 
@@ -37,10 +43,14 @@ import torch
 from repro_torch.kernels import common
 from repro_torch.kernels.common import NEG_INF
 
-#: largest G * D the kernel's registers hold
+#: largest G * D the kernel takes (its query heads run in passes of 4)
 MAX_GROUP_WIDTH = 2048
+#: CTAs per SM the split count aims at: two waves of the card
+WAVES = 2
+#: fewest cache rows per split, and most splits
+MIN_SPLIT_ROWS, MAX_SPLITS = 32, 16
 _SOURCE = "flash_decode"
-_ENTRIES = {"fd_partial": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+_ENTRIES = {"fd_partial": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
 
 Pos = Union[int, torch.Tensor]
@@ -53,6 +63,20 @@ def as_pos(pos: Pos, device: torch.device) -> torch.Tensor:
     if isinstance(pos, torch.Tensor):
         return pos.to(device=device, dtype=torch.int32).reshape(1)
     return torch.tensor([pos], dtype=torch.int32, device=device)
+
+
+def num_splits(B: int, Hkv: int, T: int, sm_count: int) -> int:
+    """How many CTAs share one (kv head, batch row)'s cache: enough for
+    ``WAVES`` CTAs per SM, at least ``MIN_SPLIT_ROWS`` of the T rows
+    each and at most ``MAX_SPLITS``.  It depends on the shapes and the
+    card alone, never on ``pos``."""
+    want = -(-WAVES * sm_count // (B * Hkv))
+    return max(1, min(want, -(-T // MIN_SPLIT_ROWS), MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -113,25 +137,35 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor,
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the "
+                             f"kernel's 16-byte loads")
 
 
 def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, pos: Pos,
                          kv_offset: int = 0) -> Partials:
-    """Launch the decode kernel on the card -> fp32 (o, l, m)."""
+    """Launch the decode kernels on the card -> fp32 (o, l, m): the split
+    kernel and, with more than one split, the merge, both on the current
+    stream."""
     _check(q, k_cache, v_cache)
     lib = common.bind(_SOURCE, _ENTRIES, "fd_error_string")
     B, H, D = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    splits = num_splits(B, Hkv, T, _sm_count(q.device.index))
     pos_t = as_pos(pos, q.device)
     o = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
     l = torch.empty((B, H), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    ws = (torch.empty(splits * B * H * (D + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.fd_partial(q.data_ptr(), k_cache.data_ptr(),
                          v_cache.data_ptr(), pos_t.data_ptr(), o.data_ptr(),
                          l.data_ptr(), m.data_ptr(),
-                         common.DTYPE_CODES[q.dtype], B, Hkv, H // Hkv, T, D, int(kv_offset),
-                         1.0 / math.sqrt(D), q.device.index, stream)
+                         None if ws is None else ws.data_ptr(),
+                         common.DTYPE_CODES[q.dtype], B, Hkv, H // Hkv, T, D,
+                         int(kv_offset), splits, 1.0 / math.sqrt(D),
+                         q.device.index, stream)
     common.raise_on_error(lib, "fd_error_string", "fd_partial", err)
     return o, l, m

@@ -116,7 +116,9 @@ def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B, H, D); caches (B, T, Hkv, D); pos a scalar (an int32 device
     tensor on the serving path) -> fp32 partials (o (B, H, D)
     unnormalised, l (B, H), m (B, H)) for ``layers.combine_partials``.
-    ``kv_block`` shapes the plain version only."""
+    ``kv_block`` shapes the plain version only.  On the card one call is
+    one launch in ``LAUNCHES`` but may be two device kernels: the
+    split-KV kernel, then the merge of its splits."""
     if q.device.type == "cpu":
         return _fd.flash_decode_plain(q, k_cache, v_cache, pos,
                                       kv_offset=kv_offset, kv_block=kv_block)

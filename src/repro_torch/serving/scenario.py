@@ -822,6 +822,19 @@ class ScenarioReport:
     results: List[Result] = field(repr=False, default_factory=list)
     engine: Any = field(repr=False, compare=False, default=None)
 
+    def bitwise_equal(self, other: "ScenarioReport") -> bool:
+        """Score parity between two runs of the same workload: both
+        complete, and every query's outputs bitwise-identical.  The
+        single comparison the benches and examples assert when claiming
+        an event timeline never changes values."""
+        if not (self.completed == self.total
+                and other.completed == other.total
+                and self.total == other.total):
+            return False
+        want = {r.rid: r.outputs for r in other.results}
+        return all(r.rid in want and np.array_equal(r.outputs, want[r.rid])
+                   for r in self.results)
+
     def to_dict(self) -> Dict[str, Any]:
         st = dataclasses.asdict(self.stats)
         st.pop("events")

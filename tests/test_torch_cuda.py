@@ -14,10 +14,11 @@ shapes and tolerances of ``repro_torch.kernels.cases`` (which
 ``chip_smoke.py`` uses too; its docstring gives the reasons): fp32
 within 2e-5 and bf16 within two bf16 steps of each element for flash
 attention (bf16 at D 64 and 128 on the tensor-core kernel, the rest on
-the scalar one), 1e-4 on o and l and 1e-5 on m for the decode partials.
-The cluster on the card is held against the same cluster on the CPU:
-equal stats, scores within rtol=1e-5, atol=1e-6; the LM on the card
-against the LM on the CPU: fp32 logits within 1e-4, equal tokens.
+the scalar one), 1e-4 on o and l and 1e-5 on m for the decode partials,
+whose two launches on the same inputs are bitwise equal.  The cluster on
+the card is held against the same cluster on the CPU: equal stats,
+scores within rtol=1e-5, atol=1e-6; the LM on the card against the LM on
+the CPU: fp32 logits within 1e-4, equal tokens.
 """
 import dataclasses
 
@@ -305,6 +306,43 @@ def test_flash_decode_vs_plain(cuda, B, H, Hkv, T, D, pos, off, dtype):
     if off > pos:
         o, l, m = got
         assert not o.any() and not l.any() and bool((m == -1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,T,D,pos,off", [
+    (8, 9, 3, 2048, 64, 1087, 0), (1, 2, 1, 4096, 128, 4095, 0),
+    (96, 9, 3, 128, 64, 100, 0)])
+def test_flash_decode_deterministic(cuda, B, H, Hkv, T, D, pos, off, dtype):
+    """The splits merge in a fixed order: two launches on the same inputs
+    are bitwise equal (many splits, and one)."""
+    rng = np.random.RandomState(T + D + pos)
+    q = cases.randn(rng, (B, H, D), cuda, dtype)
+    kc = cases.randn(rng, (B, T, Hkv, D), cuda, dtype)
+    vc = cases.randn(rng, (B, T, Hkv, D), cuda, dtype)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    first = ops.flash_decode_partial(q, kc, vc, pos_t, kv_offset=off)
+    second = ops.flash_decode_partial(q, kc, vc, pos_t, kv_offset=off)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_flash_decode_refuses_misaligned(cuda):
+    """The kernel reads 16 bytes a load and never copies: an operand
+    offset by one element from an aligned buffer is refused before any
+    launch."""
+    B, H, Hkv, T, D = 2, 9, 3, 64, 64
+    n = B * T * Hkv * D
+    buf = torch.zeros(n + B * H * D + 1, device=cuda, dtype=torch.bfloat16)
+    q, kc = buf[:B * H * D].view(B, H, D), buf[:n].view(B, T, Hkv, D)
+    ops.reset_launches()
+    for args in ((buf[1:1 + B * H * D].view(B, H, D), kc, kc),
+                 (q, buf[1:1 + n].view(B, T, Hkv, D), kc),
+                 (q, kc, buf[1:1 + n].view(B, T, Hkv, D))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.flash_decode_partial(*args, 10)
+    assert ops.LAUNCHES["flash_decode_partial"] == 0
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ bitwise equal; bf16 agrees within the reference's 0.1; the one-reduction
 The CUDA kernels themselves are held against these plain versions on
 the card by ``tests/test_torch_cuda.py``.  For the tensor-core attention
 kernel, which no CPU can run, its arithmetic is emulated in torch here
-and held to the card tolerance against the plain version.
+and held to the card tolerance against the plain version; so is the
+split-KV decode kernel's cut and merge, against the reference's Pallas
+decode kernel in interpret mode.
 """
 import math
 
@@ -19,8 +21,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode_partial as jfd_partial
 from repro_torch.kernels import cases as tcases
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -278,3 +282,95 @@ def test_reset_zeroes_variant_counts():
     tfa.VARIANT_LAUNCHES["wgmma"] += 3
     tops.reset_launches()
     assert tfa.VARIANT_LAUNCHES == {"wgmma": 0, "scalar": 0}
+
+
+# ------------------------------------------------- flash decode's split-KV
+
+H100_SMS = 132
+
+
+def _split_bounds(pos, off, T, splits):
+    """The rows ``[r0, r1)`` of each split, as the kernel cuts them on
+    the device: the live rows ``n = clamp(pos - off + 1, 0, T)`` in
+    ``splits`` near-equal ranges (empty ones where ``n < splits``)."""
+    n = min(max(pos - off + 1, 0), T)
+    return [(n * s // splits, n * (s + 1) // splits) for s in range(splits)]
+
+
+def _split_recipe(q, kc, vc, pos, off, splits):
+    """The split-KV decode kernel's arithmetic (``fd_partial``) in torch:
+    q times 1/sqrt(D) in fp32, the live rows cut by ``_split_bounds``,
+    each split's partial (o, l, m) over its rows with m starting at
+    -1e30, then the splits merged in split order: m = max m_s,
+    l = sum l_s e^(m_s - m), o = sum o_s e^(m_s - m)."""
+    B, H, D = q.shape
+    T, Hkv = kc.shape[1], kc.shape[2]
+    qf = (q.float().reshape(B, Hkv, H // Hkv, D)
+          * torch.tensor(1.0 / math.sqrt(D)))
+    parts = []
+    for r0, r1 in _split_bounds(pos, off, T, splits):
+        s = torch.einsum("bhgd,bthd->bhgt", qf, kc[:, r0:r1].float())
+        m = torch.full(s.shape[:-1], -1e30)
+        if r1 > r0:
+            m = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m[..., None])
+        parts.append((torch.einsum("bhgt,bthd->bhgd", p,
+                                   vc[:, r0:r1].float()), p.sum(-1), m))
+    m = torch.full_like(parts[0][2], -1e30)
+    for _, _, m_s in parts:
+        m = torch.maximum(m, m_s)
+    o, l = torch.zeros_like(parts[0][0]), torch.zeros_like(m)
+    for o_s, l_s, m_s in parts:
+        c = torch.exp(m_s - m)
+        o, l = o + o_s * c[..., None], l + l_s * c
+    return o.reshape(B, H, D), l.reshape(B, H), m.reshape(B, H)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,T,D,pos,off", tcases.DECODE_GRID)
+def test_split_kv_recipe_vs_pallas(B, H, Hkv, T, D, pos, off, dtype):
+    """The kernel's cut of the live rows and merge of the splits, at the
+    split count it takes on an H100, within ``DECODE_TOL`` of the
+    reference's Pallas decode kernel on every card case; a slice wholly
+    after pos gives exactly m = -1e30, l = o = 0."""
+    jd, td = {"float32": (jnp.float32, torch.float32),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    rng = np.random.RandomState(T + D + pos)
+    q, kc, vc = (tcases.randn(rng, shape, "cpu", td) for shape in
+                 ((B, H, D), (B, T, Hkv, D), (B, T, Hkv, D)))
+    splits = tfd.num_splits(B, Hkv, T, H100_SMS)
+    got = _split_recipe(q, kc, vc, pos, off, splits)
+    want = jfd_partial(*(jnp.asarray(t.float().numpy(), jd)
+                         for t in (q, kc, vc)),
+                       jnp.asarray(pos, jnp.int32), kv_offset=off,
+                       kv_block=T, interpret=True)
+    for g, w, tol in zip(got, want, tcases.DECODE_TOL):
+        np.testing.assert_allclose(g.numpy(), _np(w), atol=tol, rtol=tol)
+    if off > pos:
+        o, l, m = got
+        assert not o.any() and not l.any() and bool((m == -1e30).all())
+
+
+@pytest.mark.parametrize("B,Hkv,T,splits", [
+    (8, 3, 2048, 11),        # smollm-135m's decode: 264 CTAs, two waves
+    (96, 3, 128, 1),         # B * Hkv = 288 fills the card alone
+    (1, 1, 4096, 16),        # one group: capped at MAX_SPLITS
+    (2, 3, 96, 3),           # short cache: at least 32 rows a split
+    (1, 1, 8, 1)])
+def test_num_splits_from_shapes_alone(B, Hkv, T, splits):
+    assert tfd.num_splits(B, Hkv, T, H100_SMS) == splits
+
+
+@pytest.mark.parametrize("pos,off,T,splits", [
+    (1087, 0, 2048, 11), (0, 0, 256, 8), (1000, 0, 256, 8),
+    (100, 256, 256, 8), (700, 512, 512, 5), (2, 0, 64, 7)])
+def test_split_bounds_cut_the_live_rows(pos, off, T, splits):
+    """The splits tile [0, n) in order, n = clamp(pos - off + 1, 0, T),
+    each within one row of the others."""
+    bounds = _split_bounds(pos, off, T, splits)
+    n = min(max(pos - off + 1, 0), T)
+    assert len(bounds) == splits and bounds[0][0] == 0
+    assert bounds[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    sizes = [r1 - r0 for r0, r1 in bounds]
+    assert max(sizes) - min(sizes) <= 1

@@ -3,20 +3,25 @@
 For every single-model preset without an SLA, the port's
 ``ScenarioReport.to_dict()`` (stats, phases, audit trail, latency model;
 no scores) equals the reference's field for field, nan-aware, and the
-port's clock sanitizer (``REPRO_CLOCKSAN=1``) finds nothing.
+port's clock sanitizer (``REPRO_CLOCKSAN=1``) finds nothing.  The
+reports' score-parity predicate ``bitwise_equal`` gives the reference's
+answer on the same pairs of runs.
 """
 import dataclasses
+import functools
 import math
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+from repro.serving import scenario as jscenario
 from repro.serving.scenario import ScenarioReport as JaxReport
 from repro.serving.scenario import ScenarioSpec as JaxSpec
 from repro.serving.scenario import run_scenario as jax_run_scenario
 from repro_torch.analysis import clocksan
 from repro_torch.launch import serve
+from repro_torch.serving import scenario as tscenario
 from repro_torch.serving.scenario import (ScenarioReport, ScenarioSpec,
                                           plan_workload, run_scenario)
 
@@ -90,3 +95,35 @@ def test_cli_cluster_and_single_unit(capsys):
 def test_report_fields_are_the_references():
     assert ([f.name for f in dataclasses.fields(ScenarioReport)]
             == [f.name for f in dataclasses.fields(JaxReport)])
+
+
+@functools.lru_cache(maxsize=None)
+def _parity_run(package: str, variant: str):
+    """``failover_storm`` (two MN failures and recoveries) run by one
+    package as it is ("failures"), without its events ("clean"), with
+    the weights re-drawn from another seed mid-stream ("reload") and
+    with fewer requests ("fewer")."""
+    mod, spec_cls, kw = ((tscenario, ScenarioSpec, {"device": "cpu"})
+                         if package == "port" else (jscenario, JaxSpec, {}))
+    spec = spec_cls.load(str(PRESETS / "failover_storm.json"))
+    if variant == "clean":
+        spec = dataclasses.replace(spec, events=())
+    elif variant == "reload":
+        spec = dataclasses.replace(
+            spec, events=(mod.ReloadParams(0.01, seed=9),))
+    elif variant == "fewer":
+        spec = dataclasses.replace(spec, workload=dataclasses.replace(
+            spec.workload, requests=spec.workload.requests // 2))
+    return mod.run_scenario(spec, **kw)
+
+
+@pytest.mark.parametrize("a,b,equal", [
+    ("failures", "clean", True),     # failures move time, never scores
+    ("clean", "failures", True),
+    ("reload", "clean", False),      # other weights, other scores
+    ("clean", "fewer", False)])      # another total
+def test_bitwise_equal_matches_reference(a, b, equal):
+    got = _parity_run("port", a).bitwise_equal(_parity_run("port", b))
+    want = _parity_run("reference", a).bitwise_equal(
+        _parity_run("reference", b))
+    assert got == want == equal
