@@ -13,7 +13,11 @@ with a non-zero exit and no result line):
 3. kernels: both CUDA bag kernels against their plain PyTorch version on
    the card over the kernel test grid (D=13, P=1, padded bags, shuffled
    shard offsets, rows past the shard's end, fp32 and bf16): fp32
-   bitwise, bf16 within 0.1 (the reference's tolerance); the attention
+   bitwise, bf16 within 0.1 (the reference's tolerance); both again over
+   the NMP kernel's edges (``cases.NMP_GRID``: D from 4 to 1024, the
+   scalar path, B = 1 and 13, T = 1, P > 32 and P % K != 0, holes between
+   valid slots), bitwise in fp32 and bf16, with the library's NMP
+   schedule equal to ``cases.nmp_schedule``; the attention
    kernels against theirs at the shapes and tolerances of
    ``repro_torch.kernels.cases`` (shared with the card tests): flash
    attention causal and not, G in {1, 3}, D in {32, 64, 128}, ragged S
@@ -34,7 +38,11 @@ with a non-zero exit and no result line):
 5. timing: each kernel at the exact inputs one main-path launch gave it,
    beside its bytes bound, its plain version and one
    ``torch.nn.functional.embedding_bag`` call as a library yardstick,
-   each by single-launch median and back to back (``device_ms``);
+   each by single-launch median and back to back (``device_ms``); the
+   NMP row adds its schedule (grid, warps a block, float4 columns a
+   lane, rows in flight K), the registers, spills and static shared
+   memory ptxas gave its instantiation, and a second launch bitwise equal
+   to the first, and fails if any NMP instantiation spills;
 6. trace: the same serve once more under ``torch.profiler``: the
    device's busy time per batch, its idle share of the untraced serve's
    wall time, and the top kernels and host ops;
@@ -171,6 +179,40 @@ def check_grid(dev) -> None:
     log(f"[kernels] {n} bag cases on the card (rows past the shard's end "
         f"read its last row, as in the reference): fp32 bitwise equal to "
         f"the plain version, bf16 within {BF16_TOL}")
+    n = 0
+    for (T, R, D, B, P, fill, holes) in cases.NMP_GRID:
+        for dtype in (torch.float32, torch.bfloat16):
+            rng = np.random.RandomState(T * 1000 + D + P)
+            flat = cases.randn(rng, (T * R, D), dev, dtype)
+            slots = rng.permutation(T).astype(np.int32)   # shuffled shard
+            offsets = torch.from_numpy(slots * R).to(dev)
+            idx = torch.from_numpy(
+                cases.nmp_idx(rng, R, B, T, P, fill, holes)).to(dev)
+            want = embedding_bag_flat_plain(flat, offsets, idx)
+            for name in KERNELS:
+                got = getattr(ops, name)(flat, offsets, idx)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (name, T, R, D, B, P, dtype)
+                n += 1
+            sched = nmp_schedule(dtype, B, T, D, D % 4 == 0)
+            chunks, k = cases.nmp_schedule(D, flat.element_size(),
+                                           D % 4 == 0)
+            assert sched["chunks"] == chunks and sched["K"] == k, sched
+    log(f"[kernels] {n} bag cases at the NMP kernel's edges: fp32 and bf16 "
+        f"bitwise equal to the plain version; the library's NMP schedule "
+        f"is cases.nmp_schedule's")
+
+
+def nmp_schedule(dtype, B, T, D, vec):
+    """The schedule ``eb_nmp_flat`` launches with for these shapes, as
+    the built library reports it (``eb_nmp_schedule``)."""
+    import ctypes
+    from repro_torch.kernels import build, common
+    fn = build.load("embedding_bag").eb_nmp_schedule
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    assert fn(common.DTYPE_CODES[dtype], B, T, D, int(vec), out) == 0
+    return dict(zip(("grid", "warps_per_block", "chunks", "K"), out))
 
 
 def check_attention_grid(dev) -> None:
@@ -299,6 +341,8 @@ def time_kernel(name, flat, offsets, idx, launches, card):
     plain = embedding_bag_flat_plain(flat, offsets, idx)
     err = float((out - plain).abs().max())
     assert torch.equal(out, plain), (name, err)
+    if name == "embedding_bag_nmp_flat":
+        assert torch.equal(kernel(flat, offsets, idx), out)
     B, T, P = idx.shape
     D = flat.shape[1]
     n_valid = int((idx >= 0).sum())
@@ -322,11 +366,33 @@ def time_kernel(name, flat, offsets, idx, launches, card):
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": library_ms, "device_ms": dev_ms,
            "library_device_ms": library_dev_ms}
+    if name == "embedding_bag_nmp_flat":
+        row.update(nmp_build_fields(flat, B, T, D))
     log("[timing] " + json.dumps(dict(
         row, shape={"B": B, "T": T, "P": P, "D": D,
                     "shard_rows": flat.shape[0], "valid_slots": n_valid},
         bytes=nbytes, library_max_abs_err=lib_err, card=card)))
     return row
+
+
+def nmp_build_fields(flat, B, T, D):
+    """The NMP kernel's schedule at these inputs, two launches bitwise
+    equal, and what ptxas gave its instantiation; fails if any NMP
+    instantiation spills."""
+    vec = (D % 4 == 0
+           and flat.data_ptr() % (4 * flat.element_size()) == 0)
+    sched = nmp_schedule(flat.dtype, B, T, D, vec)
+    tname = "13__nv_bfloat16" if flat.dtype == torch.bfloat16 else "f"
+    info = ptxas_info("embedding_bag", f"nmp_flat_kernelI{tname}"
+                      f"Li{sched['chunks']}ELi{sched['K']}E")
+    every = ptxas_all("embedding_bag", "nmp_flat_kernel")
+    assert every and all(i["spill_bytes"] == 0 for i in every.values()), \
+        every
+    return dict(sched, deterministic=True,
+                registers=info and info.get("registers"),
+                spill_bytes=info and info.get("spill_bytes"),
+                smem_bytes=info and info.get("static_smem_bytes"),
+                nmp_instantiations=len(every))
 
 
 class MainPathProbe:
@@ -501,36 +567,39 @@ def kernel_row(name, ms, plain_ms, library_ms, err, launches, nbytes, flops,
             "library_ms": library_ms}
 
 
-def ptxas_info(source: str, entry: str):
+def ptxas_all(source: str, entry: str):
     """Registers, spill bytes and static shared memory that ptxas
-    reported (``-v``) for the first kernel of ``csrc/<source>.cu`` whose
-    mangled name contains ``entry``, and whether it serialised that
-    kernel's wgmmas ("Potential Performance Loss"); None when this
-    process did not build the source."""
+    reported (``-v``) for each kernel of ``csrc/<source>.cu`` whose
+    mangled name contains ``entry``, by mangled name, and whether it
+    serialised that kernel's wgmmas ("Potential Performance Loss");
+    empty when this process did not build the source."""
     import re
     from repro_torch.kernels import build
-    log = build.BUILD_LOGS.get(source, "")
-    info, inside = None, False
-    for line in log.splitlines():
+    log = build.BUILD_LOGS.get(source, "").splitlines()
+    infos, info = {}, None
+    for line in log:
         if "Compiling entry function" in line:
-            if info is not None:
-                break
-            inside = entry in line
-            if inside:
-                info = {}
-        elif inside and "spill stores" in line:
+            name = line.split("'")[1]
+            info = infos.setdefault(name, {}) if entry in name else None
+        elif info is not None and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             info["spill_bytes"] = int(st) + int(ld)
-        elif inside and "Used" in line and "registers" in line:
+        elif info is not None and "Used" in line and "registers" in line:
             info["registers"] = int(re.search(r"Used (\d+) registers",
                                               line).group(1))
             smem = re.search(r"(\d+) bytes smem", line)
             info["static_smem_bytes"] = int(smem.group(1)) if smem else 0
-    if info is not None:
+    for name, info in infos.items():
         info["wgmma_serialized"] = any(
-            "Performance Loss" in line and entry in line
-            for line in log.splitlines())
-    return info
+            "Performance Loss" in line and name in line for line in log)
+    return infos
+
+
+def ptxas_info(source: str, entry: str):
+    """``ptxas_all``'s report of the first kernel whose mangled name
+    contains ``entry``; None when this process did not build the
+    source."""
+    return next(iter(ptxas_all(source, entry).values()), None)
 
 
 def time_attention(q, k, v, kw, launches, card):

@@ -19,7 +19,10 @@ Tolerances, as ``(atol, rtol)`` for ``torch.testing.assert_close``:
 - flash decode partials: 1e-4 on o and l, 1e-5 on m (all fp32);
 - the stacked bag: bitwise, fp32 and bf16 alike (the kernel and its
   plain version add the same fp32 terms in the same order and round the
-  sum once).
+  sum once);
+- the flat bags on ``NMP_GRID``: bitwise, fp32 and bf16 alike (a bf16
+  row widens to fp32 exactly, and the fp32 output adds the same terms in
+  the same order).
 """
 from __future__ import annotations
 
@@ -31,6 +34,26 @@ BAG_GRID = [(1, 64, 8, 4, 4), (4, 100, 16, 8, 10), (3, 257, 32, 5, 7),
             (2, 128, 128, 16, 20),
             (3, 96, 13, 6, 5),        # D not a multiple of the vector width
             (2, 50, 8, 5, 1)]         # single-slot bags
+
+#: the NMP kernel's edges, run by both flat kernels: T tables, R rows
+#: each, D wide, B bags of P slots; each bag's first binomial(P, fill)
+#: slots drawn from the table, a share ``holes`` of them padding, the rest
+#: of the bag padding, and bag (0, 0) all padding (``nmp_idx``)
+NMP_GRID = [
+    (4, 64, 128, 64, 80, 0.7, 0.0),   # RM1's widths at small R, tails
+    (3, 50, 128, 6, 41, 0.8, 0.25),   # P > 32, P % K != 0, holes
+    (2, 40, 128, 1, 20, 0.8, 0.25),   # B = 1
+    (3, 40, 64, 13, 12, 0.8, 0.25),   # B = 13: 39 bags, a block of 7 warps
+    (1, 100, 128, 64, 24, 0.7, 0.25),  # T = 1, B = 64
+    (2, 30, 1024, 6, 9, 0.8, 0.25),   # D = 1024: the fewest rows in flight
+    (3, 40, 512, 5, 17, 0.8, 0.25),   # D = 512: 4 float4 columns a lane
+    (3, 40, 256, 7, 19, 0.8, 0.25),   # D = 256: K = 4 fp32, 8 bf16
+    (3, 40, 4, 9, 33, 0.8, 0.25),     # D = 4: one lane loads
+    (3, 40, 13, 6, 10, 0.8, 0.25),    # D = 13: the scalar path
+    (2, 40, 128, 5, 64, 1.0, 0.5),    # half the slots holes, none a tail
+]
+#: the NMP kernel's warps (bags) a block
+NMP_WARPS_PER_BLOCK = 8
 
 #: the stacked bag: T, R, D, B, P and how far past each table's end the
 #: rows reach (such a row reads the table's last row)
@@ -97,3 +120,32 @@ def bag_idx(rng: np.random.RandomState, R: int, B: int, T: int, P: int,
     pad = np.where(rng.rand(B, T, P) < 0.5, -1, -7)
     mask = np.arange(P)[None, None, :] < lens[..., None]
     return np.where(mask, idx, pad).astype(np.int32)
+
+
+def nmp_idx(rng: np.random.RandomState, R: int, B: int, T: int, P: int,
+            fill: float, holes: float) -> np.ndarray:
+    """Indices (B, T, P) int32 for ``NMP_GRID``: each bag's first
+    binomial(P, fill) slots drawn from [0, R), a share ``holes`` of them
+    turned into padding between valid slots, the tail padding; padding
+    is -1 or -7, and bag (0, 0) is all padding."""
+    idx = rng.randint(0, R, (B, T, P))
+    lens = rng.binomial(P, fill, (B, T))
+    lens[0, 0] = 0
+    keep = ((np.arange(P)[None, None, :] < lens[..., None])
+            & (rng.rand(B, T, P) >= holes))
+    pad = np.where(rng.rand(B, T, P) < 0.5, -1, -7)
+    return np.where(keep, idx, pad).astype(np.int32)
+
+
+def nmp_schedule(D: int, itemsize: int, vec: bool = True):
+    """The NMP kernel's choice from the shapes alone, as
+    ``csrc/embedding_bag.cu`` makes it (``nmp_chunks``,
+    ``nmp_rows_in_flight``; the library's ``eb_nmp_schedule`` reports
+    it): (float4 columns a lane, 0 on the scalar path; rows in flight a
+    warp), the rows' loads taking about 32 registers a lane (4 a column
+    of fp32, 2 of bf16), at least 2 rows and at most 8."""
+    if not vec:
+        return 0, 1
+    chunks = next(c for c in (1, 2, 4, 8) if D <= 128 * c)
+    regs = chunks * itemsize
+    return chunks, max(2, min(8, 32 // regs))

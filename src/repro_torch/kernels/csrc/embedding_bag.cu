@@ -14,8 +14,9 @@
 //                  row offsets; writes fp32.
 //   eb_nmp_flat    replaces repro/kernels/embedding_bag.py
 //                  embedding_bag_nmp_flat (near-memory pooling on an NMP
-//                  memory node).  Table-major like the NMP node: one block
-//                  per table, whose warps stride over the batch.
+//                  memory node; its Pallas body is _nmp_kernel).  One warp
+//                  per bag in table-major order, several rows in flight a
+//                  warp: see nmp_flat_kernel below.
 //   eb_stacked     replaces repro/kernels/embedding_bag.py
 //                  embedding_bag_1table, vmapped over a (T, R, D) table
 //                  stack by embedding_bag (the table-sharded lookup of
@@ -32,6 +33,38 @@
 // touches shared memory; there are no atomics (they would break the add
 // order); each warp reads its bag's 32 next indices in one coalesced load
 // and hands them out by shuffle.
+//
+// The NMP kernel keeps several rows in flight a warp.  Its first design
+// (one block per table, whose 8 warps strode over the batch through
+// pool_bag) was latency-bound, not bound by bytes: at RM1's first NMP
+// launch on an H100 (B 64, T 320, P 80, D 128 fp32, 33 valid slots a bag)
+// each of 2,560 warps pooled 8 bags one after another, one row load at a
+// time, each waited for before the next was issued: a chain of about 265
+// loads a warp (0.92 us each over the 0.244 ms launch), about 1.3 MB in
+// flight across the card where 3.35 TB/s times the memory's latency asks
+// for 2 MB or more, and 45% of the bytes bound.  So now:
+//   - one warp per (t, b) bag, numbered t * B + b: a block's warps pool
+//     bags of one table, the NMP node's (and the reference's (T, B) grid's)
+//     order, and the grid has B * T warps (20,480 there) instead of 8 T;
+//   - each 32-slot chunk's indices come in one coalesced load, the next
+//     chunk's issued before this chunk's rows, and a ballot of the valid
+//     slots drives the warp: it takes them K at a time in slot order,
+//     issues all K row loads (16 bytes a lane of fp32, 8 of bf16, through
+//     the read-only path without L1 allocation: about 95% of rows are read
+//     once a batch), then adds them in slot order.  A padding slot issues
+//     no load and is never added; a chunk or a bag tail of padding costs
+//     one ballot;
+//   - the kernel is instantiated on the float4 columns a lane owns (1, 2,
+//     4, 8 for D up to 128, 256, 512, 1024) and on K, chosen so that the
+//     loads in flight take about 32 registers a lane (K = 8 at D <= 128
+//     fp32 or D <= 256 bf16, 2 at D = 1024), so registers follow D and not
+//     the widest D.  The scalar path (D % 4 != 0 or a misaligned table)
+//     pools each bag with pool_bag, one row at a time.
+// Hopper's TMA has no gather mode (gather4 is sm_100's), and a 512-byte
+// cp.async.bulk per row into a shared-memory ring would cost an mbarrier
+// round trip per row and shared memory the rows never need: they are added
+// once, in registers, so the design spends its registers on loads in
+// flight instead.
 //
 // Row addresses are 64-bit: a full-width shard or stack holds more than
 // 2^31 elements.  A row outside its table is clamped into it, which is what
@@ -171,19 +204,150 @@ __global__ void __launch_bounds__(kThreads)
                            P, D, out + bag * D, lane);
 }
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+// A lane's share of one row chunk in the NMP kernel, loaded through the
+// read-only path without L1 allocation (ld.global.nc.L1::no_allocate) and
+// kept raw until it is added: four fp32 in 16 bytes, four bf16 in 8.
+template <typename T>
+struct RawChunk;
+template <>
+struct RawChunk<float> {
+  using type = uint4;
+  static __device__ __forceinline__ uint4 load(const float* p) {
+    uint4 v;
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+    return v;
+  }
+  static __device__ __forceinline__ float4 widen(uint4 v) {
+    return make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
+                       __uint_as_float(v.z), __uint_as_float(v.w));
+  }
+};
+template <>
+struct RawChunk<__nv_bfloat16> {
+  using type = uint2;
+  static __device__ __forceinline__ uint2 load(const __nv_bfloat16* p) {
+    uint2 v;
+    asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+        : "=r"(v.x), "=r"(v.y)
+        : "l"(p));
+    return v;
+  }
+  // bf16 widens to fp32 exactly: its 16 bits are the fp32's high half
+  static __device__ __forceinline__ float4 widen(uint2 v) {
+    return make_float4(__uint_as_float(v.x << 16),
+                       __uint_as_float(v.x & 0xffff0000u),
+                       __uint_as_float(v.y << 16),
+                       __uint_as_float(v.y & 0xffff0000u));
+  }
+};
+
+__device__ __forceinline__ int32_t load_index(const int32_t* p) {
+  int32_t v;
+  asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// The NMP kernel's schedule, from the shapes alone: kChunks float4 columns
+// a lane (0 for the scalar path) and kK rows in flight, so that the loads
+// in flight take about 32 registers a lane (4 a chunk of fp32, 2 of bf16),
+// at least 2 rows and at most 8.
+constexpr int nmp_chunks(int D, bool vec) {
+  return !vec ? 0 : D <= 128 ? 1 : D <= 256 ? 2 : D <= 512 ? 4 : 8;
+}
+constexpr int nmp_rows_in_flight(int chunks, int itemsize) {
+  return chunks == 0 ? 1
+         : chunks * itemsize <= 4 ? 8
+         : chunks * itemsize >= 16 ? 2
+                                   : 32 / (chunks * itemsize);
+}
+
+// One warp per bag, bag = t * B + b (table-major: a block's warps pool
+// bags of one table), writing out[b, t, :].  With kChunks > 0 lane l owns
+// the float4 columns l, l + 32, ... < D / 4 and the warp takes the bag's
+// valid slots kK at a time in slot order: all kK row loads first, then
+// the adds, in slot order.  The indices of each 32-slot chunk come in one
+// load (the next chunk's issued before this chunk's rows) and their
+// ballot says which slots are valid, so padding issues no load.  With
+// kChunks == 0 (D % 4 != 0 or a misaligned table) pool_bag pools the bag.
+// The RM1 instantiation (float, 1, 8) is held to 64 registers, so 32
+// warps stay resident on an SM.
+template <typename T, int kChunks, int kK>
+__global__ void __launch_bounds__(kThreads, kChunks == 1 ? 4 : 1)
     nmp_flat_kernel(const T* __restrict__ table, int64_t n_rows,
                     const int32_t* __restrict__ offsets,
                     const int32_t* __restrict__ idx,
                     float* __restrict__ out, int B, int T_, int P, int D) {
   const int lane = threadIdx.x % kWarp;
-  const int t = blockIdx.x;
+  const int64_t bag =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  if (bag >= static_cast<int64_t>(B) * T_) return;  // whole warp leaves
+  const int t = static_cast<int>(bag / B);
+  const int64_t bt = (bag % B) * T_ + t;             // (b, t) of (B, T)
+  const int32_t* __restrict__ bag_idx = idx + bt * P;
+  float* __restrict__ out_row = out + bt * D;
   const int64_t row_off = offsets[t];
-  for (int b = threadIdx.x / kWarp; b < B; b += kWarpsPerBlock) {
-    const int64_t bag = static_cast<int64_t>(b) * T_ + t;
-    pool_bag<T, float, kVec>(table, 0, n_rows - 1, row_off, idx + bag * P,
-                             P, D, out + bag * D, lane);
+  if constexpr (kChunks == 0) {
+    pool_bag<T, float, false>(table, 0, n_rows - 1, row_off, bag_idx, P, D,
+                              out_row, lane);
+  } else {
+    using Raw = typename RawChunk<T>::type;
+    const int ncols = D >> 2;
+    float4 acc[kChunks];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    int next = lane < P ? load_index(bag_idx + lane) : -1;
+    for (int p0 = 0; p0 < P; p0 += kWarp) {
+      const int mine = next;
+      const int p1 = p0 + kWarp + lane;
+      next = p1 < P ? load_index(bag_idx + p1) : -1;
+      // the chunk's valid slots; lanes past P hold -1.  Warp-uniform.
+      unsigned live = __ballot_sync(0xffffffffu, mine >= 0);
+      while (live != 0u) {
+        Raw rows[kK][kChunks];
+        int n = 0;
+#pragma unroll
+        for (int k = 0; k < kK; ++k) {
+          if (live != 0u) {
+            const int src = __ffs(live) - 1;   // lowest valid slot left
+            live &= live - 1u;
+            const int32_t ix = __shfl_sync(0xffffffffu, mine, src);
+            int64_t row = row_off + ix;
+            row = row < 0 ? 0 : (row >= n_rows ? n_rows - 1 : row);
+            const T* rp = table + row * D;
+#pragma unroll
+            for (int c = 0; c < kChunks; ++c) {
+              const int col = lane + c * kWarp;
+              if (col < ncols) rows[k][c] = RawChunk<T>::load(rp + 4 * col);
+            }
+            n = k + 1;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kK; ++k) {
+          if (k < n) {
+#pragma unroll
+            for (int c = 0; c < kChunks; ++c) {
+              if (lane + c * kWarp < ncols) {
+                const float4 x = RawChunk<T>::widen(rows[k][c]);
+                acc[c].x += x.x;
+                acc[c].y += x.y;
+                acc[c].z += x.z;
+                acc[c].w += x.w;
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int col = lane + c * kWarp;
+      if (col < ncols) store4(out_row + 4 * col, acc[c]);
+    }
   }
 }
 
@@ -204,6 +368,22 @@ __global__ void __launch_bounds__(kThreads)
                        D, out + bag * D, lane);
 }
 
+// One warp per bag, kWarpsPerBlock bags a block.
+dim3 bag_grid(int B, int T_) {
+  const int64_t bags = static_cast<int64_t>(B) * T_;
+  return dim3(static_cast<unsigned>(
+      (bags + kWarpsPerBlock - 1) / kWarpsPerBlock));
+}
+
+template <typename T, int kChunks>
+void launch_nmp(const T* tab, int64_t n_rows, const int32_t* off,
+                const int32_t* ix, float* o, int B, int T_, int P, int D,
+                cudaStream_t stream) {
+  constexpr int kK = nmp_rows_in_flight(kChunks, sizeof(T));
+  nmp_flat_kernel<T, kChunks, kK><<<bag_grid(B, T_), kThreads, 0, stream>>>(
+      tab, n_rows, off, ix, o, B, T_, P, D);
+}
+
 template <typename T>
 cudaError_t launch(bool nmp, const void* table, int64_t n_rows,
                    const void* offsets, const void* idx, void* out, int B,
@@ -213,18 +393,24 @@ cudaError_t launch(bool nmp, const void* table, int64_t n_rows,
   const int32_t* ix = static_cast<const int32_t*>(idx);
   float* o = static_cast<float*>(out);
   if (nmp) {
-    const dim3 grid(T_);
-    if (vec) {
-      nmp_flat_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-          tab, n_rows, off, ix, o, B, T_, P, D);
-    } else {
-      nmp_flat_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-          tab, n_rows, off, ix, o, B, T_, P, D);
+    switch (nmp_chunks(D, vec)) {
+      case 0:
+        launch_nmp<T, 0>(tab, n_rows, off, ix, o, B, T_, P, D, stream);
+        break;
+      case 1:
+        launch_nmp<T, 1>(tab, n_rows, off, ix, o, B, T_, P, D, stream);
+        break;
+      case 2:
+        launch_nmp<T, 2>(tab, n_rows, off, ix, o, B, T_, P, D, stream);
+        break;
+      case 4:
+        launch_nmp<T, 4>(tab, n_rows, off, ix, o, B, T_, P, D, stream);
+        break;
+      default:
+        launch_nmp<T, 8>(tab, n_rows, off, ix, o, B, T_, P, D, stream);
     }
   } else {
-    const int64_t bags = static_cast<int64_t>(B) * T_;
-    const dim3 grid(static_cast<unsigned>(
-        (bags + kWarpsPerBlock - 1) / kWarpsPerBlock));
+    const dim3 grid = bag_grid(B, T_);
     if (vec) {
       fused_flat_kernel<T, true><<<grid, kThreads, 0, stream>>>(
           tab, n_rows, off, ix, o, B, T_, P, D);
@@ -267,9 +453,7 @@ cudaError_t launch_stacked(const void* tables, int64_t R, const void* idx,
   const T* tab = static_cast<const T*>(tables);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   T* o = static_cast<T*>(out);
-  const int64_t bags = static_cast<int64_t>(B) * T_;
-  const dim3 grid(static_cast<unsigned>(
-      (bags + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  const dim3 grid = bag_grid(B, T_);
   if (vec) {
     stacked_kernel<T, true><<<grid, kThreads, 0, stream>>>(tab, R, ix, o, B,
                                                            T_, P, D);
@@ -299,6 +483,21 @@ int eb_nmp_flat(const void* table, int dtype, long long n_rows,
                 int P, int D, int vec, int device, void* stream) {
   return dispatch(true, table, dtype, n_rows, offsets, idx, out, B, T, P, D,
                   vec, device, stream);
+}
+
+// The schedule eb_nmp_flat launches with for these shapes: sched[0] the
+// grid's blocks, [1] warps (bags) a block, [2] float4 columns a lane (0 on
+// the scalar path), [3] rows in flight a warp.
+int eb_nmp_schedule(int dtype, int B, int T, int D, int vec, int* sched) {
+  if (B < 1 || T < 1 || D < 1 || D > kMaxD || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int chunks = nmp_chunks(D, vec != 0);
+  sched[0] = static_cast<int>(bag_grid(B, T).x);
+  sched[1] = kWarpsPerBlock;
+  sched[2] = chunks;
+  sched[3] = nmp_rows_in_flight(chunks, dtype == 0 ? 4 : 2);
+  return 0;
 }
 
 // tables: (T, R, D) fp32 (dtype 0) or bf16 (dtype 1); idx: (B, T, P)

@@ -15,9 +15,22 @@ output is bitwise equal between the two kernels and to
     the CN-side bag that pools a DDR memory node's raw rows.  One warp
     per (b, t) bag.
 ``embedding_bag_nmp_flat`` (CUDA ``eb_nmp_flat``)
-    Replaces ``repro/kernels/embedding_bag.py:embedding_bag_nmp_flat``,
-    the near-memory pooling of an NMP memory node.  Table-major like the
-    node: one block per table, whose warps stride over the batch.
+    Replaces ``repro/kernels/embedding_bag.py:embedding_bag_nmp_flat``
+    (Pallas body ``_nmp_kernel``), the near-memory pooling of an NMP
+    memory node.  Bound by bytes like the others.  Its first design, one
+    block per table whose warps strode over the batch one row load at a
+    time, was latency-bound instead: a chain of about 265 waited-for
+    loads a warp at RM1's first NMP launch, too few bytes in flight for
+    the memory, 45% of the bound.  Now one warp per (t, b) bag in
+    table-major order (bag ``t * B + b``, the node's and the reference's
+    (T, B) order), each taking its bag's valid slots K at a time in slot
+    order, all K row loads issued before their adds; the kernel is built
+    for the float4 columns a lane owns (1, 2, 4, 8 as D reaches 128, 256,
+    512, 1024) and for K (8 at D <= 128 fp32 or 256 bf16, down to 2 at D
+    1024), so the loads in flight take about 32 registers a lane.  No
+    TMA: Hopper's has no gather mode, and a bulk copy per row into shared
+    memory costs a barrier round trip per row for data that is added once
+    in registers.
 ``embedding_bag_stacked`` (CUDA ``eb_stacked``)
     Replaces ``repro/kernels/embedding_bag.py:embedding_bag_1table`` as
     ``embedding_bag`` vmaps it over a ``(T, R, D)`` table stack (the

@@ -20,6 +20,7 @@ the card is held against the same cluster on the CPU: equal stats,
 scores within rtol=1e-5, atol=1e-6; the LM on the card against the LM on
 the CPU: fp32 logits within 1e-4, equal tokens.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -29,7 +30,7 @@ import torch
 from repro_torch.configs import rm1, smollm_135m
 from repro_torch.core.sharding import disagg_embedding_lookup
 from repro_torch.data.queries import dlrm_request_stream
-from repro_torch.kernels import cases
+from repro_torch.kernels import build, cases, common
 from repro_torch.kernels import embedding_bag as teb
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
@@ -63,18 +64,67 @@ def _case(T, R, D, B, P, dev, dtype=torch.float32):
             torch.from_numpy(idx.astype(np.int32)).to(dev))
 
 
+def _nmp_case(T, R, D, B, P, fill, holes, dev, dtype):
+    rng = np.random.RandomState(T * 1000 + D + P)
+    flat = cases.randn(rng, (T * R, D), dev, dtype)
+    slots = rng.permutation(T).astype(np.int32)      # shuffled shard
+    idx = cases.nmp_idx(rng, R, B, T, P, fill, holes)
+    return (flat, torch.from_numpy(slots * R).to(dev),
+            torch.from_numpy(idx).to(dev))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,R,D,B,P", cases.BAG_GRID)
+@pytest.mark.parametrize("T,R,D,B,P,fill,holes", [
+    row + (None, None) for row in cases.BAG_GRID] + cases.NMP_GRID)
 @pytest.mark.parametrize("kernel", KERNELS)
-def test_kernel_bitwise_vs_plain(cuda, kernel, T, R, D, B, P, dtype):
-    flat, offsets, idx = _case(T, R, D, B, P, cuda, dtype)
+def test_kernel_bitwise_vs_plain(cuda, kernel, T, R, D, B, P, fill, holes,
+                                 dtype):
+    """Both flat kernels on the bag grid and at the NMP kernel's edges
+    (``cases.NMP_GRID``: D from 4 to 1024, the scalar path, B = 1 and 13,
+    T = 1, P > 32 and P % K != 0, holes between valid slots): bitwise
+    equal to the plain version."""
+    flat, offsets, idx = (
+        _case(T, R, D, B, P, cuda, dtype) if fill is None
+        else _nmp_case(T, R, D, B, P, fill, holes, cuda, dtype))
     before = ops.LAUNCHES[kernel]
     got = getattr(ops, kernel)(flat, offsets, idx)
     torch.cuda.synchronize()
     assert ops.LAUNCHES[kernel] == before + 1
     assert got.dtype == torch.float32 and got.shape == (B, T, D)
     assert torch.equal(got, teb.embedding_bag_flat_plain(flat, offsets, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,R,D,B,P,fill,holes", cases.NMP_GRID[:6])
+def test_nmp_kernel_deterministic(cuda, T, R, D, B, P, fill, holes, dtype):
+    """Two NMP launches on the same inputs are bitwise equal."""
+    flat, offsets, idx = _nmp_case(T, R, D, B, P, fill, holes, cuda, dtype)
+    first = ops.embedding_bag_nmp_flat(flat, offsets, idx)
+    second = ops.embedding_bag_nmp_flat(flat, offsets, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vec", [True, False])
+def test_nmp_schedule_matches_cases(cuda, dtype, vec):
+    """The library launches the schedule that ``cases.nmp_schedule``
+    (which the CPU emulation runs) says: one warp per bag, the float4
+    columns a lane and the rows in flight from D alone."""
+    lib = build.load("embedding_bag")
+    lib.eb_nmp_schedule.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    sched = (ctypes.c_int * 4)()
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    for T, _, D, B, *_ in cases.NMP_GRID:
+        assert lib.eb_nmp_schedule(common.DTYPE_CODES[dtype], B, T, D,
+                                   int(vec), sched) == 0
+        bags = B * T
+        chunks, k = cases.nmp_schedule(D, itemsize, vec)
+        assert list(sched) == [-(-bags // cases.NMP_WARPS_PER_BLOCK),
+                               cases.NMP_WARPS_PER_BLOCK, chunks, k]
 
 
 @pytest.mark.cuda

@@ -10,7 +10,9 @@ the card by ``tests/test_torch_cuda.py``.  For the tensor-core attention
 kernel, which no CPU can run, its arithmetic is emulated in torch here
 and held to the card tolerance against the plain version; so is the
 split-KV decode kernel's cut and merge, against the reference's Pallas
-decode kernel in interpret mode.
+decode kernel in interpret mode, and the NMP bag kernel's schedule (one
+warp per bag, K rows in flight), bitwise against the reference's Pallas
+NMP kernel in interpret mode.
 """
 import math
 
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import embedding_bag as jeb
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_decode import flash_decode_partial as jfd_partial
@@ -188,6 +191,133 @@ def test_attention_off_cpu_launches_or_raises(wrapper):
             else (q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2), 3))
     with pytest.raises(ValueError, match="CUDA tensors"):
         getattr(tops, wrapper)(*args)
+
+
+# ----------------------------------------------- the NMP kernel's schedule
+
+def _nmp_recipe(flat, offsets, idx):
+    """The NMP kernel's schedule (``nmp_flat_kernel``) in numpy: warp w
+    of the grid pools bag w = t * B + b (table-major) and writes out[b,
+    t]; lane l owns the float4 columns l, l + 32, ... < D / 4 (the
+    elements l, l + 32, ... on the scalar path); each 32-slot chunk's
+    indices come in one load, their ballot marks the valid slots, and the
+    warp takes these K at a time in slot order, loading all K rows
+    (clamped into the flat table) before adding them, predicated, in
+    slot order to an fp32 accumulator that starts at +0.0.  The chunk
+    count and K come from D (``cases.nmp_schedule``); the scalar path
+    (``pool_bag``) is K = 1.  flat is fp32 (bf16 rows widened)."""
+    n_rows, D = flat.shape
+    B, T, P = idx.shape
+    chunks, K = tcases.nmp_schedule(D, flat.itemsize, vec=D % 4 == 0)
+    # every column is one lane's (pool_bag's lanes own up to 32 elements)
+    per, n_chunks = (4, chunks) if chunks else (1, 32)
+    owned = sorted(per * (l + 32 * c) + e for c in range(n_chunks)
+                   for l in range(32) if per * (l + 32 * c) < D
+                   for e in range(per))
+    assert owned == list(range(D))
+    W = tcases.NMP_WARPS_PER_BLOCK
+    warps = np.arange(-(-B * T // W) * W)
+    bag = warps[warps < B * T]                    # the rest leave at once
+    t, b = bag // B, bag % B
+    bag_idx, row_off = idx[b, t].astype(np.int64), offsets[t].astype(np.int64)
+    acc = np.zeros((len(bag), D), np.float32)
+    for p0 in range(0, P, 32):
+        mine = np.full((len(bag), 32), -1, np.int64)    # one index load
+        n = min(32, P - p0)
+        mine[:, :n] = bag_idx[:, p0:p0 + n]
+        live = mine >= 0                                # the ballot
+        lanes = np.argsort(~live, axis=1, kind="stable")  # valid first
+        count = live.sum(axis=1)
+        for g in range(0, 32, K):
+            loads = []
+            for k in range(K):                          # the loads first
+                ok = count > g + k
+                ix = mine[np.arange(len(bag)), lanes[:, g + k]]
+                row = np.clip(row_off + ix, 0, n_rows - 1)
+                loads.append((ok, flat[row]))
+            for ok, x in loads:                         # adds in slot order
+                acc = np.where(ok[:, None], acc + x, acc)
+    out = np.zeros((B, T, D), np.float32)
+    out[b, t] = acc
+    return out
+
+
+def _nmp_inputs(T, R, D, dtype, seed):
+    """A flat shard (T * R, D) in ``dtype``, as fp32 for the recipe and
+    as the reference's operand, with shuffled table offsets."""
+    rng = np.random.RandomState(seed)
+    flat = torch.from_numpy(rng.randn(T * R, D).astype(np.float32)).to(
+        getattr(torch, dtype)).float().numpy()        # bf16 rows, widened
+    offsets = (rng.permutation(T) * R).astype(np.int32)
+    return rng, flat, offsets
+
+
+def _nmp_pallas(flat, offsets, idx, dtype):
+    return np.asarray(jeb.embedding_bag_nmp_flat(
+        jnp.asarray(flat, getattr(jnp, dtype)), jnp.asarray(offsets),
+        jnp.asarray(idx), interpret=True))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,R,D,B,P,fill,holes", tcases.NMP_GRID)
+def test_nmp_recipe_vs_pallas(T, R, D, B, P, fill, holes, dtype):
+    """The NMP kernel's schedule, emulated, is bitwise equal to the
+    reference's Pallas NMP kernel (interpret mode) on every edge row of
+    the card grid, in fp32 and on bf16 tables."""
+    rng, flat, offsets = _nmp_inputs(T, R, D, dtype, T * 1000 + D + P)
+    idx = tcases.nmp_idx(rng, R, B, T, P, fill, holes)
+    want = _nmp_pallas(flat, offsets, idx, dtype)
+    assert np.array_equal(_nmp_recipe(flat, offsets, idx), want)
+    assert np.array_equal(tops.embedding_bag_nmp_flat(
+        torch.from_numpy(flat), torch.from_numpy(offsets),
+        torch.from_numpy(idx)).numpy(), want)
+
+
+def _group_edge_idx(rng, R, B, T, P, K):
+    """Bags with padding on the edges of K-slot groups: by b mod 5, all
+    slots valid; slots p % K == K - 1 padding; p % K == 0 padding; a
+    padded tail; random holes.  Bag (0, 0) is all padding."""
+    idx = rng.randint(0, R, (B, T, P)).astype(np.int32)
+    p = np.arange(P)
+    pad = [np.zeros(P, bool), p % K == K - 1, p % K == 0,
+           p >= rng.randint(0, P + 1), rng.rand(P) < 0.3]
+    for b in range(B):
+        idx[b, :, pad[b % 5]] = -1 - b % 7
+    idx[0, 0] = -1
+    return idx
+
+
+def _slot_count_edges():
+    """(D, dtype, P) at P = 1, K - 1, K, K + 1, 32, 33 and 80 for the
+    K that D = 128 and 256 fp32 and D = 1024 bf16 take (8, 4, 2)."""
+    for D, dtype, itemsize in ((128, "float32", 4), (256, "float32", 4),
+                               (1024, "bfloat16", 2)):
+        K = tcases.nmp_schedule(D, itemsize)[1]
+        for P in sorted({1, K - 1, K, K + 1, 32, 33, 80}):
+            yield D, dtype, P
+
+
+@pytest.mark.parametrize("D,dtype,P", list(_slot_count_edges()))
+def test_nmp_recipe_slot_counts(D, dtype, P):
+    """Slot counts at the groups' edges, with padding on them: the
+    emulated schedule is bitwise equal to the reference's Pallas NMP
+    kernel."""
+    T, R, B = 2, 30, 10
+    K = tcases.nmp_schedule(D, 4 if dtype == "float32" else 2)[1]
+    rng, flat, offsets = _nmp_inputs(T, R, D, dtype, D + P)
+    idx = _group_edge_idx(rng, R, B, T, P, K)
+    assert np.array_equal(_nmp_recipe(flat, offsets, idx),
+                          _nmp_pallas(flat, offsets, idx, dtype))
+
+
+@pytest.mark.parametrize("D,itemsize,vec,want", [
+    (128, 4, True, (1, 8)),        # RM1: one float4 a lane, 8 rows
+    (4, 4, True, (1, 8)), (64, 2, True, (1, 8)), (256, 2, True, (2, 8)),
+    (256, 4, True, (2, 4)), (512, 4, True, (4, 2)), (512, 2, True, (4, 4)),
+    (1024, 4, True, (8, 2)), (1024, 2, True, (8, 2)),
+    (13, 4, False, (0, 1))])       # the scalar path: pool_bag
+def test_nmp_schedule_from_d(D, itemsize, vec, want):
+    assert tcases.nmp_schedule(D, itemsize, vec) == want
 
 
 # ------------------------------------------- flash attention's tensor cores
