@@ -46,9 +46,20 @@ with a non-zero exit and no result line):
 6. trace: the same serve once more under ``torch.profiler``: the
    device's busy time per batch, its idle share of the untraced serve's
    wall time, and the top kernels and host ops;
-7. single unit: ``DLRMServingEngine(use_kernel=True)`` over the whole
+7. elastic: on the serve phase's model and bank, (a) the serve flags
+   plus ``--elastic`` (the diurnal ``Autoscaler`` plan as timed
+   resizes, shard migration included) on the same stream: at least one
+   resize, every request completed, scores bitwise equal to the serve
+   phase's; (b) ``--cns 1 --mns 2 --mn-type ddr_mn,nmp_mn``, 128
+   requests, once without an SLA and once with ``--sla-p99-ms`` at half
+   that run's virtual-clock p99: the SLA controller acts (its window
+   filled), the final pool is larger than {1, 2}, both flat kernels
+   launch and the scores are bitwise equal to the first run's.  Each
+   run prints its wall ms per batch, resizes, migrated bytes, final
+   pool, launches and peak device memory;
+8. single unit: ``DLRMServingEngine(use_kernel=True)`` over the whole
    (800, 40000, 128) bank, which needs 64-bit row addresses;
-8. sharded: the table-sharded lookup ``core.sharding.disagg_embedding_
+9. sharded: the table-sharded lookup ``core.sharding.disagg_embedding_
    lookup(mesh=None, use_kernel=True)`` over the whole bank, permuted by
    ``greedy_table_layout(m=4)`` (a second 16.4 GB stack), for a batch of
    64 from the same request stream: exactly one stacked-bag launch, the
@@ -57,7 +68,19 @@ with a non-zero exit and no result line):
    copy of 64 tables bitwise equal to its plain version; its time beside
    its bytes bound, its plain version and one
    ``torch.nn.functional.embedding_bag`` call; peak device memory;
-9. lm: smollm-135m at its published widths, nothing cut (30 layers,
+10. fleet: RM1 V0 and RM2 V0 at their published widths, only
+   ``rows_per_table`` cut, to 20,000 in both (the shared pool needs one
+   table shape; the banks are 8.19 and 4.10 GB), served as one fleet
+   through ``fleet.run_fleet`` with hand-built members under
+   ``fleet_shift``'s traffic (48 requests, seed 9, a 0.3 rate shift
+   from RM1 to RM2, then RM2's rows skewed) on the serve phase's pool
+   with a 0.05 MB hot-row cache per CN: every request completed, both
+   models and both flat kernels served, every score finite, in [0, 1]
+   and within ``SCORE_ATOL`` of its member's one-reduction path; wall
+   ms per batch, batches per model, launches, peak device memory, and
+   RM2's dense tower at batch 64 traced (device ms, the GEMMs' share,
+   the fp32 bound);
+11. lm: smollm-135m at its published widths, nothing cut (30 layers,
    d 576, 9 heads over 3 kv heads, head_dim 64, d_ff 1536, vocab 49152,
    tied, bf16), through ``LMServingEngine.generate``: batch 8, a
    1024-token seeded prompt, a 2048-slot cache, 64 decode steps.  The
@@ -102,6 +125,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 ROWS = 40_000                  # rows_per_table cut so the bank fits
+FLEET_ROWS = 20_000            # both fleet members' cut: one table shape
+ELASTIC_REQUESTS = 128         # the [elastic] (b) stream
 SCORE_ATOL = 1e-5              # cluster scores vs the one-reduction path
 BF16_TOL = 0.1                 # the reference's bf16 tolerance
 KERNELS = {
@@ -396,30 +421,38 @@ def nmp_build_fields(flat, B, T, D):
 
 
 class MainPathProbe:
-    """Counts ``ClusterEngine._mn_pool`` calls, keeps the first call's
-    inputs for each kernel (so the timing phase can replay one real
-    main-path launch), times ``serve`` and, with ``profile``, traces it
-    with ``torch.profiler``."""
+    """Counts ``ClusterEngine._mn_pool`` calls and the batches executed
+    per fleet model, keeps the first call's inputs for each kernel (so
+    the timing phase can replay one real main-path launch; ``keep=False``
+    keeps none, so that a resize frees the old shards), times ``serve``
+    and, with ``profile``, traces it with ``torch.profiler``."""
 
-    def __init__(self, profile: bool = False):
+    def __init__(self, profile: bool = False, keep: bool = True):
         from repro_torch.serving.cluster import ClusterEngine
         self.cls = ClusterEngine
         self.orig_pool = ClusterEngine._mn_pool
+        self.orig_execute = ClusterEngine._execute
         self.orig_serve = ClusterEngine.serve
         self.profile = profile
+        self.keep = keep
         self.prof = None
         self.calls = 0
+        self.batches = {}
         self.first = {}
         self.serve_s = 0.0
 
     def __enter__(self):
         probe = self
 
+        def execute(eng, task, dense, idx, model=0):
+            probe.batches[model] = probe.batches.get(model, 0) + 1
+            return probe.orig_execute(eng, task, dense, idx, model=model)
+
         def mn_pool(eng, j, tids, idx_sub):
             probe.calls += 1
             name = ("embedding_bag_nmp_flat" if eng.mn_nmp[j]
                     else "embedding_bag_fused_flat")
-            if name not in probe.first:
+            if probe.keep and name not in probe.first:
                 slots = [eng._shard_slot[j][t] for t in tids]
                 offsets = torch.tensor(slots, dtype=torch.int32,
                                        device=idx_sub.device) * eng.R
@@ -444,11 +477,13 @@ class MainPathProbe:
             return out
 
         self.cls._mn_pool = mn_pool
+        self.cls._execute = execute
         self.cls.serve = serve
         return self
 
     def __exit__(self, *exc):
         self.cls._mn_pool = self.orig_pool
+        self.cls._execute = self.orig_execute
         self.cls.serve = self.orig_serve
         return False
 
@@ -827,6 +862,226 @@ def sharded_phase(dev, cfg, model, params, reqs, card):
     return row
 
 
+def serve_line(phase, what, rep, probe, launches, card) -> None:
+    """One phase's serve numbers: wall per batch, the pool, resizes and
+    migrated bytes, launches and peak device memory."""
+    eng, st = rep.engine, rep.stats
+    log(f"[{phase}] {what}: {rep.completed}/{rep.total} requests in "
+        f"{eng.batches_seen} batches, serve wall {probe.serve_s:.3f} s = "
+        f"{probe.serve_s / eng.batches_seen * 1e3:.2f} ms/batch; final pool "
+        f"{{{rep.final_n_cn} CN, {rep.final_m_mn} MN}} "
+        f"{list(rep.mn_types)}; resizes {st.resizes}, migration_bytes "
+        f"{st.migration_bytes:.0f}, SLA actions {st.sla_actions}; "
+        f"virtual p99 {st.p99 * 1e3:.3f} ms; launches {launches}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"{card}")
+
+
+def elastic_phase(model, params, flags, stream, scores, card) -> None:
+    """SLA-driven and schedule-driven elasticity at RM1's full widths on
+    the ``[serve]`` bank: (a) the ``[serve]`` flags plus ``--elastic``
+    (the diurnal ``Autoscaler`` plan as timed resizes, with the FailMN)
+    on the same stream, scores bitwise equal to ``[serve]``'s; (b) a
+    {1 CN, 2 MN} pool served without an SLA, then with the SLA
+    controller held to half of that run's virtual-clock p99, which must
+    act, grow the pool and leave the scores bitwise unchanged."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.scenario import Resize, plan_workload, run_scenario
+
+    def run(argv, stream, kernels=KERNELS):
+        spec = serve.spec_from_flags(serve.parser().parse_args(argv))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        with MainPathProbe(keep=False) as probe:
+            rep = run_scenario(spec, model=model, params=params,
+                               stream=stream)
+        launches = dict(ops.LAUNCHES)
+        assert rep.completed == rep.total == len(stream[0])
+        assert all(launches[k] > 0 for k in kernels), launches
+        assert sum(launches.values()) == probe.calls, (launches, probe.calls)
+        return spec, rep, probe, launches
+
+    # the plan's first Resize (t=0) shrinks the pool to its first two MNs,
+    # both DDR, and the MNs it adds later are of the pool's default type
+    # (DDR): this run launches the fused kernel only
+    argv = flags + ["--mn-type", "2xddr_mn+2xnmp_mn", "--elastic"]
+    spec, rep, probe, launches = run(argv, stream,
+                                     kernels=["embedding_bag_fused_flat"])
+    planned = [e for e in spec.events if isinstance(e, Resize)]
+    serve_line("elastic", f"(a) {' '.join(argv)} ({len(planned)} planned "
+               f"Resize events: " + ", ".join(
+                   f"{e.time_s * 1e3:g} ms -> {{{e.n_cn}, {e.m_mn}}}"
+                   for e in planned) + ")", rep, probe, launches, card)
+    assert rep.stats.resizes >= 1, rep.stats.resizes
+    for r in rep.results:
+        assert np.array_equal(r.outputs, scores[r.rid]), r.rid
+    log("[elastic] (a) scores bitwise equal to the [serve] phase's")
+    del rep, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    base = ["--cluster", "--full", "--cns", "1", "--mns", "2", "--replicas",
+            "2", "--batch", "64", "--requests", str(ELASTIC_REQUESTS),
+            "--mn-type", "ddr_mn,nmp_mn"]
+    spec0 = serve.spec_from_flags(serve.parser().parse_args(base))
+    stream_b = plan_workload(spec0, model.cfg)
+    _, rep0, probe, launches = run(base, stream_b)
+    serve_line("elastic", f"(b) {' '.join(base)}, no SLA", rep0, probe,
+               launches, card)
+    target_ms = rep0.stats.p99 * 1e3 / 2
+    want = {r.rid: r.outputs for r in rep0.results}
+    del rep0, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    sla = base + ["--sla-p99-ms", repr(target_ms)]
+    _, rep, probe, launches = run(sla, stream_b)
+    serve_line("elastic", f"(b) the same with --sla-p99-ms {target_ms!r} "
+               f"(half the run's p99)", rep, probe, launches, card)
+    st = rep.stats
+    assert st.sla_actions >= 1 and st.sla_window_filled, st
+    assert (rep.final_n_cn >= 1 and rep.final_m_mn >= 2
+            and (rep.final_n_cn, rep.final_m_mn) != (1, 2)), \
+        (rep.final_n_cn, rep.final_m_mn)
+    for r in rep.results:
+        assert np.array_equal(r.outputs, want[r.rid]), r.rid
+    log(f"[elastic] (b) the controller emitted {st.sla_actions} resize "
+        f"action(s), window filled; scores bitwise equal to the run "
+        f"without an SLA")
+    del rep, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fleet_phase(dev, card) -> None:
+    """RM1 V0 and RM2 V0 at their published widths, ``rows_per_table``
+    cut to FLEET_ROWS in both (the shared pool needs one table shape),
+    served as one fleet under ``fleet_shift``'s traffic on the
+    ``[serve]`` pool through ``run_fleet`` with hand-built members."""
+    from repro_torch.configs import rm1, rm2
+    from repro_torch.kernels import ops
+    from repro_torch.models.dlrm import DLRMModel
+    from repro_torch.serving.fleet import (FleetModel, plan_fleet_workload,
+                                           run_fleet)
+    from repro_torch.serving.scenario import ModelRef, ScenarioSpec, preset
+
+    cfgs = [mod.CONFIG.replace(
+        name=f"{mod.CONFIG.name}-rows{FLEET_ROWS // 1000}k",
+        dlrm=dataclasses.replace(mod.CONFIG.dlrm, rows_per_table=FLEET_ROWS))
+        for mod in (rm1, rm2)]
+    log("[fleet] RM1 V0 + RM2 V0 at their published widths on one pool; "
+        "cuts: " + ", ".join(
+            f"{mod.CONFIG.name} rows_per_table "
+            f"{mod.CONFIG.dlrm.rows_per_table} -> {FLEET_ROWS}"
+            for mod in (rm1, rm2)) + " (one table shape for the pool)")
+    for cfg in cfgs:
+        log(f"[fleet] {cfg.name}: {dataclasses.asdict(cfg.dlrm)}")
+    shift = preset("fleet_shift")
+    spec = ScenarioSpec(
+        name="fleet_shift-full", workload=shift.workload,
+        events=shift.events,
+        models=tuple(ModelRef(arch=a, reduced=False, rate_share=0.5)
+                     for a in ("rm1", "rm2")),
+        topology=dataclasses.replace(
+            shift.topology, batch_size=64, n_cn=2, m_mn=4, n_replicas=2,
+            mn_types=("ddr_mn", "ddr_mn", "nmp_mn", "nmp_mn")))
+    torch.cuda.reset_peak_memory_stats()
+    members = []
+    for ref, cfg in zip(spec.models, cfgs):
+        model = DLRMModel(cfg)
+        members.append(FleetModel(name=ref.arch, ref=ref, model=model,
+                                  params=model.init(0, device=dev)))
+    ops.reset_launches()
+    with MainPathProbe(keep=False) as probe:
+        rep = run_fleet(spec, fleet=members, device=dev)
+    launches = dict(ops.LAUNCHES)
+    serve_line("fleet", f"fleet_shift's traffic ({spec.workload.requests} "
+               f"requests, seed {spec.workload.seed}, cache_mb "
+               f"{spec.topology.cache_mb}, {len(spec.events)} events) on "
+               f"{{2 CN, 4 MN}} 2xddr_mn+2xnmp_mn, batch 64", rep, probe,
+               launches, card)
+    cs = rep.engine.cache_stats()
+    log(f"[fleet] batches executed per model "
+        f"{ {members[k].name: n for k, n in sorted(probe.batches.items())} }; "
+        f"hot-row cache probes {cs.probes} (one Python lookup each, "
+        f"{probe.serve_s / cs.probes * 1e6:.2f} us of serve wall per "
+        f"probe); per-model stats " + "; ".join(
+            f"{n}: {m.completed}/{m.queries} completed, p99 "
+            f"{m.p99 * 1e3:.3f} ms, {m.cache_hits} cache hits"
+            for n, m in rep.stats.per_model.items()))
+    assert rep.completed == rep.total == spec.workload.requests
+    assert set(rep.stats.per_model) == {"rm1", "rm2"}
+    assert all(m.completed > 0 for m in rep.stats.per_model.values())
+    assert all(launches[k] > 0 for k in KERNELS), launches
+    assert sum(launches.values()) == probe.calls, (launches, probe.calls)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    results = rep.results
+    del rep, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqs, _ = plan_fleet_workload(spec, members)   # the stream run_fleet served
+    worst = 0.0
+    for r in results:
+        q = reqs[r.rid]
+        m = members[q.model]
+        assert r.outputs.shape == (q.size,) and np.all(np.isfinite(r.outputs))
+        assert np.all((r.outputs >= 0) & (r.outputs <= 1))
+        for c in range(0, q.size, 64):
+            batch = {k: torch.from_numpy(v[c:c + 64]).to(dev)
+                     for k, v in q.payload.items()}
+            want = m.model.serve_step(m.params, batch).cpu().numpy()
+            np.testing.assert_allclose(r.outputs[c:c + 64], want, rtol=0,
+                                       atol=SCORE_ATOL)
+            worst = max(worst, float(np.abs(r.outputs[c:c + 64]
+                                             - want).max()))
+    log(f"[fleet] every score finite, in [0, 1], and within {SCORE_ATOL} "
+        f"of its member's one-reduction path (worst {worst:.3g})")
+    rm2_dense_trace(members[1], dev, card)
+    log(f"[fleet] peak device memory {peak_gb:.2f} GB (both banks, their "
+        f"concatenation, two replica copies, RM2's dense tower); {card}")
+    del members, results, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rm2_dense_trace(member, dev, card, steps: int = 5) -> None:
+    """RM2's dense tower at batch 64 under ``torch.profiler``: device ms
+    per batch and the GEMM kernels' share of it, beside the fp32 bound
+    from its FLOP count."""
+    from repro_torch.configs import counting
+    cfg = member.model.cfg
+    r = cfg.dlrm
+    g = torch.Generator(device=dev).manual_seed(0)
+    dense = torch.randn(64, r.num_dense_features, device=dev, generator=g)
+    pooled = torch.randn(64, r.num_tables, r.embed_dim, device=dev,
+                         generator=g)
+    step = lambda: member.model.dense_forward(member.params, dense, pooled)
+    step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / steps
+    gemm = sum(e.self_device_time_total for e in device
+               if "gemm" in e.key.lower() or "cutlass" in e.key.lower()
+               ) / 1e3 / steps
+    flops = 64 * counting.dlrm_dense_flops(cfg)
+    bound = flops / FP32_OPS_PER_S * 1e3
+    log(f"[fleet] RM2 dense tower, batch 64, traced x{steps}: device "
+        f"{busy:.3f} ms/batch, GEMM kernels {gemm:.3f} ms "
+        f"({gemm / busy:.3f} of it); {flops / 1e9:.1f} GFLOP/batch, fp32 "
+        f"bound {bound:.3f} ms; top: " + "; ".join(
+            f"{e.key[:50]} {e.self_device_time_total / 1e3 / steps:.3f}"
+            for e in sorted(device, key=lambda e: e.self_device_time_total,
+                            reverse=True)[:4]) + f"; {card}")
+
+
 def lm_trace(model, params, prompt, prefill_s, step_s, card,
              steps: int = 8) -> None:
     """The main path's prefill, then ``steps`` decode steps, once more
@@ -1086,6 +1341,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------ elastic
+    elastic_phase(model, params, flags, stream, scores, card)
+
     # -------------------------------------------------------- single unit
     unit = DLRMServingEngine(model, params, batch_size=64, use_kernel=True)
     ops.reset_launches()
@@ -1109,6 +1367,9 @@ def main() -> int:
     del unit, out, whole, params, model
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -------------------------------------------------------------- fleet
+    fleet_phase(dev, card)
 
     # ----------------------------------------------------------------- lm
     rows += lm_phase(dev, card)

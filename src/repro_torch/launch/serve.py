@@ -8,6 +8,12 @@ CUDA card.
       --cns 2 --mns 4 --mn-type "2xddr_mn+2xnmp_mn" --fail-mn 1
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rm1 --cluster \\
       --device cpu                       # plain PyTorch path on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rm1 --cluster \\
+      --cns 3 --mns 6 --elastic          # diurnal resize schedule
+  PYTHONPATH=src python -m repro_torch.launch.serve --cluster \\
+      --arrival poisson --sla-p99-ms 60  # live traffic + SLA feedback
+  PYTHONPATH=src python -m repro_torch.launch.serve --cluster \\
+      --models rm1,rm2                   # RM1 + RM2 fleet on one pool
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --full --decode-steps 8            # LM generation
 
@@ -16,9 +22,8 @@ the single-unit engine and the cluster path, which goes through the
 declarative scenario API (``serving.scenario.run_scenario``) with the
 flags assembled into a ``ScenarioSpec`` by :func:`spec_from_flags`; for
 smollm-135m greedy generation through ``LMServingEngine`` (two prompts
-of 16 seeded tokens, a 128-slot cache).  ``--elastic``,
-``--sla-p99-ms``, ``--models`` and the other LM archs need modules that
-are not ported yet, and raise.
+of 16 seeded tokens, a 128-slot cache).  The other LM archs are not
+ported yet, and raise.
 """
 from __future__ import annotations
 
@@ -31,36 +36,44 @@ from repro_torch import configs
 from repro_torch.data.queries import QueryDist, dlrm_request_stream
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.serving.autoscaler import Autoscaler, AutoscalerConfig
 from repro_torch.serving.cluster import parse_mn_types
 from repro_torch.serving.engine import (DLRMServingEngine, LMServingEngine,
                                         Request)
-from repro_torch.serving.scenario import (FailMN, ModelRef, ScenarioSpec,
-                                          Topology, Workload, run_scenario)
-
-
-def _not_ported(what: str, module: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs {module}, which is not ported yet (ROADMAP Queue 1)")
+from repro_torch.serving.scenario import (FailMN, ModelRef, Resize,
+                                          ScenarioSpec, Topology, Workload,
+                                          run_scenario)
 
 
 def spec_from_flags(args) -> ScenarioSpec:
     """The CLI flags, expressed as a ScenarioSpec — the flag combinations
     are a preset builder over the scenario API."""
-    if args.models:
-        raise _not_ported("--models (fleet serving)", "serving/fleet.py")
-    if args.elastic:
-        raise _not_ported("--elastic", "serving/autoscaler.py")
-    if args.sla_p99_ms is not None:
-        raise _not_ported("--sla-p99-ms", "serving/autoscaler.py")
     mn_types = tuple(parse_mn_types(args.mn_type, args.mns))
+    if args.models:
+        archs = [a.strip() for a in args.models.split(",") if a.strip()]
+        models = tuple(ModelRef(arch=a, reduced=args.reduced,
+                                init_seed=args.seed) for a in archs)
+    else:
+        models = (ModelRef(arch=args.arch, reduced=args.reduced,
+                           init_seed=args.seed),)
     events = []
     if args.fail_mn is not None:
         events.append(FailMN(0.001 * args.requests / 2, mn=args.fail_mn))
+    if args.elastic:
+        # one diurnal day mapped onto the stream; the CLI pool sizes are
+        # the peak the trough scales down from
+        toy = Autoscaler(AutoscalerConfig(
+            qps_per_cn=1.0 / args.cns, qps_per_mn=1.0 / args.mns,
+            min_cn=1, min_mn=min(2, args.mns),
+            max_cn=args.cns, max_mn=args.mns))
+        events += [Resize(e.time_s, n_cn=e.n_cn, m_mn=e.m_mn)
+                   for e in toy.plan(peak_load=0.95,
+                                     duration_s=0.001 * args.requests,
+                                     steps=8)]
     return ScenarioSpec(
         name="cli",
         description="scenario assembled from repro_torch.launch.serve flags",
-        models=(ModelRef(arch=args.arch, reduced=args.reduced,
-                         init_seed=args.seed),),
+        models=models,
         topology=Topology(
             n_cn=args.cns, m_mn=args.mns, batch_size=args.batch,
             n_replicas=args.replicas, use_kernel=args.use_kernel,
@@ -75,6 +88,8 @@ def spec_from_flags(args) -> ScenarioSpec:
                           arrival=args.arrival,
                           burstiness=args.burstiness,
                           trace_path=args.trace),
+        sla_p99_s=(args.sla_p99_ms / 1e3
+                   if args.sla_p99_ms is not None else None),
         sla_mode=args.sla_mode,
         events=tuple(events),
     )
@@ -95,8 +110,10 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="rm1")
     p.add_argument("--models", default=None, metavar="A,B",
-                   help="fleet serving on one shared pool (not ported "
-                        "yet: raises)")
+                   help="comma list of archs to serve as a fleet on one "
+                        "shared pool (cluster mode), e.g. 'rm1,rm2' — "
+                        "overrides --arch; rates split evenly and "
+                        "per-model stats report on the shared pool")
     p.add_argument("--reduced", action="store_true", default=True)
     p.add_argument("--full", dest="reduced", action="store_false")
     p.add_argument("--requests", type=int, default=32)
@@ -121,7 +138,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--fail-mn", type=int, default=None,
                    help="kill this MN mid-stream (cluster mode)")
     p.add_argument("--elastic", action="store_true",
-                   help="diurnal resize schedule (not ported yet: raises)")
+                   help="follow a diurnal resize schedule mapped onto "
+                        "the request stream (cluster mode): both pools "
+                        "scale down toward the trough and back")
     p.add_argument("--alpha", type=float, default=0.0,
                    help="Zipf row-popularity skew of the query stream "
                         "(0 = uniform; production streams ~1.05)")
@@ -146,7 +165,10 @@ def parser() -> argparse.ArgumentParser:
                    help="JSON arrival-timestamp trace file "
                         "(requires --arrival trace)")
     p.add_argument("--sla-p99-ms", type=float, default=None,
-                   help="p99 latency SLA feedback (not ported yet: raises)")
+                   help="p99 latency SLA in ms (cluster mode): enables "
+                        "the feedback SLAController, which watches the "
+                        "measured sliding-window p99 and emits live "
+                        "Resize events to hold it under the target")
     p.add_argument("--sla-mode", default="coupled",
                    choices=["coupled", "decoupled"],
                    help="SLA controller scaling split (with --sla-p99-ms)")
@@ -194,6 +216,11 @@ def main(argv=None):
         return 0
     if args.cluster:
         spec = spec_from_flags(args)
+        if len(spec.models) > 1:
+            # fleet specs build their own models (the single prebuilt
+            # model/params pair can't cover the fleet)
+            _print_report(run_scenario(spec, device=device))
+            return 0
         params = model.init(args.seed, device=device)
         _print_report(run_scenario(spec, model=model, params=params,
                                    device=device))

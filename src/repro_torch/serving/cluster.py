@@ -282,29 +282,65 @@ class ClusterStats:
 class ClusterEngine:
     """Serve a DLRM over {n CN, m MN} with replica-aware routing.
 
-    One model per engine: the reference's multi-model fleet (several
-    models sharing one pool) is not ported yet.  The per-model
-    bookkeeping the timeline reads (``model_names``, the fleet cache
-    counters) keeps the reference's one-entry shape.
+    Fleet serving: ``fleet`` is an optional ``[(name, model, params),
+    ...]`` list (first entry = the primary ``model``/``params`` pair)
+    whose members share this engine's CN and MN pools.  Every model's
+    tables map into one global table-id space — model k's local table
+    ``t`` is global tid ``_tbl_off[k] + t`` — so placement, routing,
+    shards, hedging, and the caches all run unchanged over the union;
+    only hot/cold classification and cache budgets are attributed per
+    model.  The shared pool needs a uniform table shape ``(rows, dim)``
+    across members (table *counts* and pooling factors may differ).  A
+    fleet of one is exactly the single-model engine.
 
     The engine runs on ``device`` (default: the CUDA card, see
-    ``repro_torch.device``); ``params`` must already lie there."""
+    ``repro_torch.device``); every member's ``params`` must already lie
+    there."""
 
     def __init__(self, model, params, cfg: Optional[ClusterConfig] = None,
                  unit_model: Optional[ServingUnitModel] = None,
+                 fleet: Optional[Sequence[Tuple[str, object, object]]] = None,
                  device: DeviceLike = None):
         assert model.cfg.family == "dlrm"
         self.device = resolve_device(device)
-        require_on(params["embed"], self.device)
         self.model = model
         self.cfg = cfg or ClusterConfig()
-        self.model_names = [model.cfg.name]
+        self.fleet = (list(fleet) if fleet is not None
+                      else [(model.cfg.name, model, params)])
+        if fleet is not None and (not self.fleet
+                                  or self.fleet[0][1] is not model):
+            raise ValueError("fleet[0] must be the engine's primary "
+                             "(model, params) pair")
+        for _, _, p in self.fleet:
+            require_on(p["embed"], self.device)
+        self.model_names = [n for n, _, _ in self.fleet]
+        self.n_models = len(self.fleet)
         r = model.cfg.dlrm
         self.R, self.D = r.rows_per_table, r.embed_dim
-        self.tables = [em.TableInfo(t, self.R, self.D, float(r.avg_pooling))
-                       for t in range(r.num_tables)]
+        self._tbl_off: List[int] = []
+        self._tbl_count: List[int] = []
+        self._tbl_owner: List[int] = []
+        self.tables = []
+        for k, (name, m, _) in enumerate(self.fleet):
+            assert m.cfg.family == "dlrm"
+            rk = m.cfg.dlrm
+            if (rk.rows_per_table, rk.embed_dim) != (self.R, self.D):
+                raise ValueError(
+                    f"fleet model {name!r} has table shape "
+                    f"({rk.rows_per_table}, {rk.embed_dim}); the shared "
+                    f"MN pool needs the uniform shape "
+                    f"({self.R}, {self.D})")
+            off = len(self.tables)
+            self._tbl_off.append(off)
+            self._tbl_count.append(rk.num_tables)
+            self._tbl_owner += [k] * rk.num_tables
+            self.tables += [em.TableInfo(off + t, self.R, self.D,
+                                         float(rk.avg_pooling))
+                            for t in range(rk.num_tables)]
         self.T = len(self.tables)
-        self.params = params
+        self._fleet_params = [p for _, _, p in self.fleet]
+        self.params = (params if self.n_models == 1
+                       else self._fleet_embed())
         # live pool sizes — cfg keeps the initial provisioning, these move
         # with resize()
         self.n_cn = self.cfg.n_cn
@@ -321,9 +357,9 @@ class ClusterEngine:
         self.mn_slow = [1.0] * self.m_mn
         self._route_w = [max(self.mn_bw) / bw for bw in self.mn_bw]
         self.capacities = self._pool_capacities(self.m_mn)
-        self.alloc = em.allocate_heterogeneous(
-            self.tables, self.capacities, self.mn_types,
-            n_replicas=self.cfg.n_replicas)
+        self.alloc = self._allocate(self.tables, self.capacities,
+                                    self.mn_types,
+                                    n_replicas=self.cfg.n_replicas)
         self.dead: Set[int] = set()
         self.routing = em.route_greedy(self.tables, self.alloc,
                                        self.n_cn, self.m_mn,
@@ -334,17 +370,21 @@ class ClusterEngine:
                                 self.m_mn, self.cfg.mn_type,
                                 mn_types=tuple(self.mn_types)))
         # measured per-table hotness: feeds cache admission priorities
-        # and re-allocation (reinit / replan) hot/cold classification
-        self.hotness = em.HotnessCounter(self.T)
+        # and re-allocation (reinit / replan) hot/cold classification.
+        # Under a fleet the counter is owner-scoped, so one model's
+        # traffic cannot demote another model's hot tables.
+        self.hotness = em.HotnessCounter(
+            self.T, owners=(self._tbl_owner if self.n_models > 1
+                            else None))
         # per-CN hot-row caches + the routes their entries were fetched
         # over (the coherence protocol diffs these on every rebuild)
         self.caches: List[RowCache] = self._make_caches(self.n_cn)
         self._cache_routes: List[Dict[int, int]] = []
         self._retired_cache = CacheStats()     # departed CNs' counters
         self.cache_bytes_saved = 0.0
-        # per-model cache attribution, one entry (ModelStats reads it)
-        self.fleet_cache_hits = [0]
-        self.fleet_cache_bytes_saved = [0.0]
+        # per-model cache attribution (index = fleet position)
+        self.fleet_cache_hits = [0] * self.n_models
+        self.fleet_cache_bytes_saved = [0.0] * self.n_models
         self._batch_cache_s = 0.0              # last batch's probe+hit time
         self._sync_caches()
         # counters / accounting
@@ -385,6 +425,27 @@ class ClusterEngine:
                + self.tables[0].size_bytes)
         return [cap] * m_mn
 
+    def _fleet_embed(self) -> Dict[str, torch.Tensor]:
+        """Concatenate the fleet members' embedding banks along the table
+        axis, in fleet order — global tid `_tbl_off[k] + t` indexes model
+        k's local table t directly.  The concatenation is a new device
+        tensor beside the members' own banks."""
+        return {"embed": torch.cat(
+            [p["embed"] for p in self._fleet_params], dim=0)}
+
+    def _allocate(self, tables, capacities, mn_types, n_replicas,
+                  access_bytes=None):
+        """Placement dispatch: owner-scoped `allocate_fleet` for a
+        multi-model pool, `allocate_heterogeneous` for a single model."""
+        if self.n_models > 1:
+            return em.allocate_fleet(
+                tables, capacities, mn_types,
+                [self._tbl_owner[t.tid] for t in tables],
+                n_replicas=n_replicas, access_bytes=access_bytes)
+        return em.allocate_heterogeneous(
+            tables, capacities, mn_types, n_replicas=n_replicas,
+            access_bytes=access_bytes)
+
     # ------------------------------------------------------------- shards
     def _build_shards(self) -> None:
         """Materialize each MN's replica shard: the tables the allocator
@@ -419,8 +480,38 @@ class ClusterEngine:
         if self.cfg.cache_mb <= 0:
             return []
         budget = int(self.cfg.cache_mb * 1e6)
-        return [RowCache(budget, self.D * 4, self.cfg.cache_policy)
-                for _ in range(n_cn)]
+        caches = [RowCache(budget, self.D * 4, self.cfg.cache_policy)
+                  for _ in range(n_cn)]
+        if self.n_models > 1:
+            owner_of = {tid: o for tid, o in enumerate(self._tbl_owner)}
+            budgets = self._cache_budgets(budget)
+            for c in caches:
+                c.set_partitions(owner_of, budgets)
+        return caches
+
+    def _cache_budgets(self, budget: int) -> Dict[int, int]:
+        """Split one CN's cache byte budget across fleet members in
+        proportion to their measured access bytes (equal split on a cold
+        counter).  The remainder after integer division goes to model 0."""
+        totals = self.hotness.owner_totals(self.tables)
+        grand = sum(totals.values())
+        if grand <= 0.0:
+            budgets = {k: budget // self.n_models
+                       for k in range(self.n_models)}
+        else:
+            budgets = {k: int(budget * (totals.get(k, 0.0) / grand))
+                       for k in range(self.n_models)}
+        budgets[0] += budget - sum(budgets.values())
+        return budgets
+
+    def rebalance_cache_budgets(self) -> int:
+        """Re-split every CN cache's partition budgets to the current
+        per-model traffic mix; returns rows evicted to fit the new
+        budgets.  No-op for a single-model engine."""
+        if self.n_models <= 1 or not self.caches:
+            return 0
+        budgets = self._cache_budgets(int(self.cfg.cache_mb * 1e6))
+        return sum(c.rebalance(budgets) for c in self.caches)
 
     def _sync_caches(self) -> None:
         """Coherence: after any routing rebuild, invalidate in each CN's
@@ -483,19 +574,25 @@ class ClusterEngine:
         MN shards re-materialize and every CN cache flushes."""
         require_on(params["embed"], self.device)
         self.params = params
+        if self.n_models == 1:
+            self._fleet_params = [params]
         self._build_shards()
         for cache in self.caches:
             cache.flush()
 
     def reload_seed(self, seed: Optional[int]) -> None:
         """Seeded weight reload (the ReloadParams event): re-initialize
-        the parameters from `seed` on the engine's device (None keeps
-        current weights but still forces the shard rebuild + cache
-        flush)."""
+        every fleet member's parameters from `seed` on the engine's
+        device (None keeps current weights but still forces the shard
+        rebuild + cache flush)."""
         if seed is None:
             self.reload_params(self.params)
-        else:
+        elif self.n_models == 1:
             self.reload_params(self.model.init(seed, device=self.device))
+        else:
+            self._fleet_params = [m.init(seed, device=self.device)
+                                  for _, m, _ in self.fleet]
+            self.reload_params(self._fleet_embed())
 
     def replan_placement(self) -> None:
         """Re-run node-type-aware placement with *measured* hotness (the
@@ -506,7 +603,7 @@ class ClusterEngine:
         would silently shrink the effective replication factor), and
         routing rebuilds / caches invalidate per the moved routes."""
         live = [j for j in range(self.m_mn) if j not in self.dead]
-        sub = em.allocate_heterogeneous(
+        sub = self._allocate(
             self.tables,
             [self.capacities[j] for j in live],
             [self.mn_types[j] for j in live],
@@ -525,6 +622,9 @@ class ClusterEngine:
                                        mn_weights=self._route_w)
         self._build_shards()
         self._sync_caches()
+        # a replan is also the natural moment to re-split the per-model
+        # cache byte budgets to the measured traffic mix (no-op single)
+        self.rebalance_cache_budgets()
 
     # ------------------------------------------------------------ failure
     def fail_mn(self, j: int) -> None:
@@ -545,7 +645,7 @@ class ClusterEngine:
             # full strength under a fresh allocation
             self.reinits += 1
             self.dead.clear()
-            self.alloc = em.allocate_heterogeneous(
+            self.alloc = self._allocate(
                 self.tables, self.capacities, self.mn_types,
                 n_replicas=self.cfg.n_replicas,
                 access_bytes=self.hotness.measured_access_bytes(self.tables))
@@ -724,16 +824,20 @@ class ClusterEngine:
         The batch's indices go to the device once; each MN's pooled
         vectors land in one device buffer, and only the scores return
         to the host.  The byte accounting reads the host copy of
-        ``idx``, exactly as the reference does.  ``model`` is the
-        fleet index of the batch, always 0 on this one-model engine."""
-        if model != 0:
-            raise ValueError(f"batch of fleet model {model}: this engine "
-                             f"serves one model (fleets are not ported)")
+        ``idx``, exactly as the reference does.
+
+        `model` selects the fleet member the batch belongs to: `idx` is
+        indexed by the model's *local* table ids, its lookups touch only
+        the model's global-tid slice, and the dense step runs that
+        member's parameters.  Model 0 of a single-model engine is the
+        single-model path bit-for-bit (the slice is the whole pool)."""
+        off = self._tbl_off[model]
+        Tm = self._tbl_count[model]
         shards = em.shard_assignment(self.alloc, self.routing, self.T,
                                      self.m_mn, task)
         B = dense.shape[0]
         idx_dev = torch.from_numpy(idx).to(self.device)
-        pooled = torch.zeros((B, self.T, self.D), dtype=torch.float32,
+        pooled = torch.zeros((B, Tm, self.D), dtype=torch.float32,
                              device=self.device)
         mem_j = np.zeros(self.m_mn)
         gat_j = np.zeros(self.m_mn)
@@ -743,24 +847,30 @@ class ClusterEngine:
         batch_hit_bytes = 0.0
         self._last_scan = {}
         for j, tids in enumerate(shards):
-            if not tids:
+            # restrict this MN's shard slice to the owning model's tables
+            mtids = [t for t in tids if off <= t < off + Tm]
+            if not mtids:
                 continue
             if j in self.dead:          # stale routing — never expected
                 raise LookupError(f"routing targets dead MN {j}")
-            cols = torch.tensor(tids, dtype=torch.long, device=self.device)
-            out = self._mn_pool(j, tids, idx_dev.index_select(1, cols))
-            pooled.index_copy_(1, cols, out.float())
-            sub = idx[:, tids, :]
+            cols = [t - off for t in mtids]
+            cols_dev = torch.tensor(cols, dtype=torch.long,
+                                    device=self.device)
+            out = self._mn_pool(j, mtids, idx_dev.index_select(1, cols_dev))
+            pooled.index_copy_(1, cols_dev, out.float())
+            sub = idx[:, cols, :]
             per_table = (sub >= 0).sum(axis=(0, 2))
             self._last_scan[j] = [(int(t), float(pt) * row_b) for t, pt
-                                  in zip(tids, per_table.tolist())]
-            self.hotness.update(tids, per_table)
+                                  in zip(mtids, per_table.tolist())]
+            self.hotness.update(mtids, per_table)
             nvalid = int(per_table.sum())
             if cache is not None and not self.mn_nmp[j]:
-                hits = self._cache_serve(cache, tids, sub)
+                hits = self._cache_serve(cache, mtids, sub)
                 mem_j[j] = float(nvalid - hits) * row_b
                 gat_j[j] = mem_j[j]
                 self.cache_bytes_saved += float(hits) * row_b
+                # every tid in mtids belongs to `model`, so the whole
+                # shard's hits attribute to it without a per-tid split
                 self.fleet_cache_hits[model] += hits
                 self.fleet_cache_bytes_saved[model] += float(hits) * row_b
                 batch_probes += nvalid
@@ -768,7 +878,7 @@ class ClusterEngine:
             elif self.mn_nmp[j]:
                 mem_j[j] = float(nvalid) * row_b
                 live_rows = int((sub >= 0).any(axis=(1, 2)).sum())
-                gat_j[j] = float(live_rows * len(tids)) * row_b
+                gat_j[j] = float(live_rows * len(mtids)) * row_b
             else:
                 mem_j[j] = float(nvalid) * row_b
                 gat_j[j] = mem_j[j]
@@ -776,8 +886,9 @@ class ClusterEngine:
         self._batch_cache_s = ((batch_probes * hw.CACHE_TAG_BYTES
                                 + batch_hit_bytes) / hw.CN_HBM_BW)
         dense_dev = torch.from_numpy(dense).to(self.device)
-        scores = torch.sigmoid(self.model.dense_forward(
-            self.params, dense_dev, pooled))
+        member = self.fleet[model][1]
+        scores = torch.sigmoid(member.dense_forward(
+            self._fleet_params[model], dense_dev, pooled))
         return scores.cpu().numpy(), mem_j, gat_j
 
     # ---------------------------------------------------------- serving
@@ -818,7 +929,7 @@ class ClusterEngine:
 
         Execution is real PyTorch on the device; time is a virtual clock
         advanced with the analytic stage model, so latencies are
-        deterministic and comparable to ServingUnitModel."""
+        deterministic and comparable to ServingUnitModel / ClusterSim."""
         from repro_torch.serving.timeline import TimelineDispatcher, legacy_events
         evs = legacy_events(failures, resizes) + list(events or ())
         return TimelineDispatcher(self, requests, evs,

@@ -43,15 +43,21 @@ tie-break), so legacy-kwarg runs score bitwise-identically to their
 the phased request stream, serve through the engine, and return a
 :class:`ScenarioReport` with per-phase stats and the per-event audit
 trail.  This is the PyTorch port of ``repro.serving.scenario``: the
-events, the spec and its serde, the workload planner and the report are
-copies; the preset library and the lint CLI stay with the reference,
-whose ``examples/scenarios/*.json`` files load here unchanged.
+events, the spec and its serde, the workload planner, the report, the
+preset library and the lint CLI are copies, and the
+``examples/scenarios/*.json`` files load here unchanged.
+``python -m repro_torch.serving.scenario_cli *.json`` (note the
+``_cli`` wrapper — running this module with ``-m`` executes it twice)
+lints scenario files; ``--run`` executes them; ``--write-presets DIR``
+re-emits the named preset library.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
+import sys
 from dataclasses import dataclass, field
 from typing import (Any, ClassVar, Dict, List, Optional, Sequence, Tuple,
                     Type)
@@ -166,8 +172,8 @@ class ShiftTraffic(ScenarioEvent):
     "fast-evolving workloads" story as a timeline event.  The aggregate
     arrival rate is conserved; only the per-model split moves.  Like
     ``SetWorkload`` it is consumed when the request stream is built
-    (:func:`repro.serving.fleet.plan_fleet_workload`) and audit-only at
-    dispatch time.  Requires a multi-model spec."""
+    (:func:`repro_torch.serving.fleet.plan_fleet_workload`) and
+    audit-only at dispatch time.  Requires a multi-model spec."""
     from_model: str = ""
     to_model: str = ""
     share: float = 0.0
@@ -984,18 +990,18 @@ def run_scenario(spec: ScenarioSpec, model=None, params=None, stream=None,
     ``device`` is where the engine runs (default: the CUDA card; see
     ``repro_torch.device``); handed-in ``params`` must lie there.
 
-    Fleet specs (more than one model) and SLA feedback control need
-    the fleet and autoscaler modules, which are not ported yet: both
-    raise ``NotImplementedError``."""
+    Fleet specs (more than one entry in ``spec.models``) are delegated
+    to :func:`repro_torch.serving.fleet.run_fleet`; a one-model fleet IS
+    a single-model spec (``__post_init__`` normalization) and takes this
+    path unchanged."""
     spec.validate()
     if len(spec.models) > 1:
-        raise NotImplementedError(
-            "fleet specs need serving/fleet.py, not ported yet "
-            "(ROADMAP Queue 1 item 2)")
-    if spec.sla_p99_s is not None:
-        raise NotImplementedError(
-            "SLA feedback control needs serving/autoscaler.py, not ported "
-            "yet (ROADMAP Queue 1 item 1)")
+        if model is not None or params is not None or stream is not None:
+            raise ValueError(
+                "fleet specs build their own models and streams; the "
+                "model/params/stream caching hooks are single-model only")
+        from repro_torch.serving.fleet import run_fleet
+        return run_fleet(spec, device=device)
     dev = resolve_device(device)
     if model is None:
         cfg = (configs.get_reduced(spec.model.arch) if spec.model.reduced
@@ -1008,7 +1014,16 @@ def run_scenario(spec: ScenarioSpec, model=None, params=None, stream=None,
     engine = ClusterEngine(
         model, params, spec.topology.cluster_config(seed=spec.workload.seed),
         device=dev)
-    results, stats = engine.serve(reqs, events=spec.events)
+    controller = None
+    if spec.sla_p99_s is not None:
+        from repro_torch.serving.autoscaler import (SLAController,
+                                                    SLAControllerConfig)
+        controller = SLAController(
+            SLAControllerConfig(sla_p99_s=spec.sla_p99_s,
+                                mode=spec.sla_mode),
+            n_cn=spec.topology.n_cn, m_mn=spec.topology.m_mn)
+    results, stats = engine.serve(reqs, events=spec.events,
+                                  controller=controller)
     by_rid = {r.rid: r for r in results}
     phase_stats = []
     for ph in phases:
@@ -1026,3 +1041,316 @@ def run_scenario(spec: ScenarioSpec, model=None, params=None, stream=None,
         mn_types=tuple(engine.mn_types), stats=stats, phases=phase_stats,
         latency_model=engine.validate_latency_model(), results=results,
         engine=engine)
+
+
+# ------------------------------------------------------------- presets
+def smoke_topology(**overrides) -> Topology:
+    """The canonical smoke cluster every bench/example topology derives
+    from: :class:`Topology`'s defaults ARE the smoke shape ({2 CN,
+    4 MN, batch 32, 2x replicas} — one source of truth), and this
+    helper names the intent at the 7+ call sites that used to
+    hand-roll ``ClusterConfig(...)`` across ``benchmarks/`` and
+    ``examples/``."""
+    return Topology(**overrides)
+
+
+def _preset_failover_storm() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="failover_storm",
+        description=(
+            "Two failure/recovery cycles sweep the MN pool mid-stream: "
+            "each death re-routes to surviving replicas (fast path), each "
+            "timed recovery rebuilds routing over the healed pool — "
+            "scores stay bitwise-identical to a failure-free run "
+            "(paper §IV-A/§IV-D, Fig. 9)."),
+        topology=smoke_topology(),
+        workload=Workload(requests=32, seed=1),
+        events=(
+            FailMN(0.012, mn=1),
+            RecoverMN(0.024, mn=1),
+            FailMN(0.036, mn=3),
+            RecoverMN(0.048, mn=3),
+        ),
+    )
+
+
+def _preset_diurnal_elastic() -> ScenarioSpec:
+    from repro_torch.serving.autoscaler import Autoscaler, AutoscalerConfig
+    span = 32 * 0.002
+    toy = Autoscaler(AutoscalerConfig(
+        qps_per_cn=1.0, qps_per_mn=0.5, min_cn=1, min_mn=2,
+        max_cn=3, max_mn=6))
+    events = tuple(Resize(e.time_s, n_cn=e.n_cn, m_mn=e.m_mn)
+                   for e in toy.plan(peak_load=3.0, duration_s=span,
+                                     steps=8))
+    return ScenarioSpec(
+        name="diurnal_elastic",
+        description=(
+            "One diurnal day mapped onto the stream: both pools follow "
+            "the load curve down to the trough and back via timed "
+            "resizes, shard migration draining to survivors — scores "
+            "bitwise-identical to the fixed {3 CN, 6 MN} peak pool "
+            "(paper §III, Fig. 2b/11)."),
+        topology=smoke_topology(n_cn=3, m_mn=6),
+        workload=Workload(requests=32, seed=0),
+        events=events,
+    )
+
+
+def _preset_skew_drift() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="skew_drift",
+        description=(
+            "Row-popularity skew drifts across the stream — uniform, "
+            "then Zipf alpha=1.05, then 1.2 — while a small per-CN "
+            "hot-row cache adapts and a final replan re-places tables "
+            "from measured hotness (Gupta et al. skew; FlexEMR-style "
+            "caching).  No legacy kwarg can express this."),
+        topology=smoke_topology(cache_mb=0.05),
+        workload=Workload(requests=36, seed=7),
+        events=(
+            SetWorkload(0.024, alpha=1.05),
+            SetWorkload(0.048, alpha=1.2, gap_s=0.001),
+            ReplanPlacement(0.06),
+        ),
+    )
+
+
+def _preset_mixed_ddr_nmp() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="mixed_ddr_nmp",
+        description=(
+            "Heterogeneous memory pool (2 DDR + 2 NMP): a DDR node dies "
+            "and its tables ride their NMP replicas, it recovers, and "
+            "the pool then grows with two more NMP nodes — bitwise-"
+            "identical scores throughout, strictly fewer gather bytes "
+            "than all-DDR (paper §NMP, Fig. 14)."),
+        topology=smoke_topology(
+            mn_types=("ddr_mn", "ddr_mn", "nmp_mn", "nmp_mn")),
+        workload=Workload(requests=32, seed=3),
+        events=(
+            FailMN(0.016, mn=0),
+            RecoverMN(0.032, mn=0),
+            Resize(0.048, m_mn=6, mn_type="nmp_mn"),
+        ),
+    )
+
+
+def _preset_pipeline_burst() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="pipeline_burst",
+        description=(
+            "A backlogged burst (every request at t=0) served with four "
+            "batches in flight: MN scans of batch k+1 hide behind the "
+            "gather/dense of batch k, so throughput tracks the "
+            "bottleneck resource instead of the stage sum (DisaggRec "
+            "§IV; FlexEMR overlapped gets).  Scores are bitwise-"
+            "identical to the same spec at inflight_depth=1 — only the "
+            "clock changes, never the math."),
+        topology=smoke_topology(inflight_depth=4, max_wait_s=2e-5),
+        workload=Workload(requests=64, gap_s=0.0, seed=5),
+    )
+
+
+def _preset_flash_crowd() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="flash_crowd",
+        description=(
+            "Poisson traffic spikes 10x mid-stream and recedes: queueing "
+            "delay (arrival -> admission) piles into the tail while the "
+            "SLA feedback controller watches the measured p99 against "
+            "sla_p99_s and emits Resize scale-ups through the live "
+            "timeline, then the pool returns to steady state (Gupta et "
+            "al. bursty production traffic; paper Fig. 2b).  Runs on a "
+            "compressed virtual timescale (per-batch service is ~7us at "
+            "smoke scale): the pool starts at its {1 CN, 2 MN} floor, "
+            "the crowd overloads it ~3x, and the controller rides "
+            "measured p99 up to 4x capacity and back down to the floor."),
+        topology=smoke_topology(n_cn=1, m_mn=2, inflight_depth=4,
+                                max_wait_s=2e-5),
+        workload=Workload(requests=960, gap_s=4e-6, arrival="poisson",
+                          seed=11),
+        sla_p99_s=6e-5,
+        events=(
+            SetWorkload(1e-4, gap_s=7e-7),
+            SetWorkload(5e-4, gap_s=4e-6),
+        ),
+    )
+
+
+def _preset_spike_plus_failure() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="spike_plus_failure",
+        description=(
+            "Bursty arrivals, then a traffic spike with an MN failure "
+            "landing mid-spike: re-route rides the surviving replicas "
+            "while the SLA controller scales the pool against the "
+            "compound tail, the MN heals, and traffic recedes — the "
+            "paper's reliability story under its worst-case load "
+            "(§IV-A/§IV-D + Fig. 2b, via the typed timeline).  Same "
+            "compressed virtual timescale as flash_crowd, with an "
+            "on-scale mn_recovery_s so the mid-stage re-issue stall "
+            "stays commensurate with the traffic."),
+        topology=smoke_topology(n_cn=1, m_mn=2, inflight_depth=4,
+                                max_wait_s=2e-5, mn_recovery_s=2e-5),
+        workload=Workload(requests=1024, gap_s=2e-6, arrival="bursty",
+                          burstiness=4.0, seed=13),
+        sla_p99_s=6e-5,
+        events=(
+            SetWorkload(1e-4, gap_s=3.5e-7),
+            FailMN(1.5e-4, mn=1),
+            RecoverMN(2.5e-4, mn=1),
+            SetWorkload(4e-4, gap_s=2e-6),
+        ),
+    )
+
+
+def _preset_fleet_shift() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="fleet_shift",
+        description=(
+            "RM1 and RM2 share one disaggregated pool: each model keeps "
+            "its own ingress batcher and SLA accounting while their "
+            "embedding tables are co-placed on the single MN pool "
+            "(per-model hotness attribution, per-model cache budget "
+            "partitions).  Mid-stream a shift_traffic event moves 30% "
+            "of the aggregate rate from RM1 to RM2 — the paper's "
+            "fast-evolving-workloads story (Fig. 1/14 fleet view) as a "
+            "timeline event; a model-scoped set_workload then skews "
+            "RM2's rows without touching RM1's stream."),
+        models=(ModelRef(arch="rm1", rate_share=0.5),
+                ModelRef(arch="rm2", rate_share=0.5)),
+        topology=smoke_topology(cache_mb=0.05),
+        workload=Workload(requests=48, seed=9),
+        events=(
+            ShiftTraffic(0.032, from_model="rm1", to_model="rm2",
+                         share=0.3),
+            SetWorkload(0.056, alpha=1.05, model="rm2"),
+        ),
+    )
+
+
+PRESETS = {
+    "failover_storm": _preset_failover_storm,
+    "diurnal_elastic": _preset_diurnal_elastic,
+    "skew_drift": _preset_skew_drift,
+    "mixed_ddr_nmp": _preset_mixed_ddr_nmp,
+    "pipeline_burst": _preset_pipeline_burst,
+    "flash_crowd": _preset_flash_crowd,
+    "spike_plus_failure": _preset_spike_plus_failure,
+    "fleet_shift": _preset_fleet_shift,
+}
+
+
+def preset(name: str) -> ScenarioSpec:
+    """Build a named scenario preset (the source of truth behind
+    ``examples/scenarios/<name>.json``)."""
+    if name not in PRESETS:
+        raise KeyError(f"unknown scenario preset {name!r} "
+                       f"(known: {sorted(PRESETS)})")
+    return PRESETS[name]()
+
+
+# ----------------------------------------------------------- lint CLI
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        description="Lint (and optionally run) scenario spec files.")
+    p.add_argument("paths", nargs="*", help="scenario .json files")
+    p.add_argument("--run", action="store_true",
+                   help="execute each linted scenario via run_scenario")
+    p.add_argument("--write-presets", metavar="DIR", default=None,
+                   help="re-emit the named preset library into DIR")
+    p.add_argument("--format", choices=["text", "json"], default="text",
+                   help="lint report format: text (default; defects "
+                        "raise, preserving the historical CLI contract) "
+                        "or json (defects become findings in the shared "
+                        "lint report schema; exit 1 if any)")
+    p.add_argument("--device", default=None,
+                   help="torch device --run serves on (default: the CUDA "
+                        "card; 'cpu' runs the plain PyTorch path)")
+    args = p.parse_args(argv)
+    if args.write_presets:
+        import os
+        os.makedirs(args.write_presets, exist_ok=True)
+        for name in sorted(PRESETS):
+            path = os.path.join(args.write_presets, f"{name}.json")
+            preset(name).save(path)
+            print(f"[scenario] wrote {path}")
+        return 0
+    if not args.paths:
+        p.error("no scenario files given")
+    if args.format == "json":
+        # one lint-report schema across the repo: the scenario lint
+        # emits the static linter's findings shape, so CI parses one
+        # schema regardless of which linter produced it
+        if args.run:
+            p.error("--format json is lint-only (drop --run)")
+        from repro_torch.analysis.report import (Finding, LintResult,
+                                                 render_json)
+        result = LintResult()
+        for path in args.paths:
+            result.files_checked += 1
+            try:
+                spec = ScenarioSpec.load(path)
+                spec.validate()
+                rt = ScenarioSpec.from_json(spec.to_json())
+                if rt != spec:
+                    raise AssertionError(
+                        "serde round-trip changed the spec")
+            except Exception as e:
+                result.findings.append(Finding(
+                    file=path, line=0, rule="scenario-lint",
+                    message=f"{type(e).__name__}: {e}"))
+        sys.stdout.write(render_json(result, tool="scenario-lint"))
+        return result.exit_code()
+    dev = resolve_device(args.device) if args.run else None
+    models = {}     # (arch, reduced, init_seed) -> (model, params):
+    for path in args.paths:  # presets share one reduced rm1 — build once
+        spec = ScenarioSpec.load(path)
+        spec.validate()
+        rt = ScenarioSpec.from_json(spec.to_json())
+        if rt != spec:
+            raise AssertionError(f"{path}: serde round-trip changed the spec")
+        print(f"[scenario-lint] ok {path}: {spec.name!r} "
+              f"({len(spec.events)} events, {spec.workload.requests} "
+              f"requests on {{{spec.topology.n_cn} CN, "
+              f"{spec.topology.m_mn} MN}})")
+        if args.run:
+            if len(spec.models) > 1:
+                # fleet specs build their own model set (run_fleet);
+                # the single-model cache below doesn't apply
+                rep = run_scenario(spec, device=dev)
+                for line in rep.summary():
+                    print(line)
+                if rep.completed != rep.total:
+                    raise AssertionError(
+                        f"{path}: {rep.completed}/{rep.total} completed")
+                continue
+            key = (spec.model.arch, spec.model.reduced,
+                   spec.model.init_seed)
+            if key not in models:
+                mcfg = (configs.get_reduced(spec.model.arch)
+                        if spec.model.reduced
+                        else configs.get_config(spec.model.arch))
+                model = DLRMModel(mcfg)
+                models[key] = (model, model.init(spec.model.init_seed,
+                                                 device=dev))
+            model, params = models[key]
+            rep = run_scenario(spec, model=model, params=params,
+                               device=dev)
+            for line in rep.summary():
+                print(line)
+            if rep.completed != rep.total:
+                raise AssertionError(
+                    f"{path}: {rep.completed}/{rep.total} completed")
+    return 0
+
+
+if __name__ == "__main__":
+    # `python -m repro_torch.serving.scenario` executes this file as
+    # ``__main__`` while the serving package imports it again under its
+    # canonical name — two parallel class hierarchies whose isinstance
+    # checks never match.  Delegate to the canonical module so every
+    # event the CLI builds is the class the dispatcher tests against.
+    from repro_torch.serving.scenario import main as _canonical_main
+    sys.exit(_canonical_main())

@@ -17,11 +17,13 @@ attention (bf16 at D 64 and 128 on the tensor-core kernel, the rest on
 the scalar one), 1e-4 on o and l and 1e-5 on m for the decode partials,
 whose two launches on the same inputs are bitwise equal.  The cluster on
 the card is held against the same cluster on the CPU: equal stats,
-scores within rtol=1e-5, atol=1e-6; the LM on the card against the LM on
-the CPU: fp32 logits within 1e-4, equal tokens.
+scores within rtol=1e-5, atol=1e-6; the RM1 + RM2 fleet on the card
+against itself with the plain pooling: scores within 1e-5; the LM on the
+card against the LM on the CPU: fp32 logits within 1e-4, equal tokens.
 """
 import ctypes
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -40,9 +42,12 @@ from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.serving.cluster import ClusterConfig, ClusterEngine
 from repro_torch.serving.engine import LMServingEngine, Request
-from repro_torch.serving.scenario import FailMN
+from repro_torch.serving.fleet import build_fleet, run_fleet
+from repro_torch.serving.scenario import FailMN, ScenarioSpec
 
 KERNELS = ["embedding_bag_fused_flat", "embedding_bag_nmp_flat"]
+SCENARIOS = Path(__file__).resolve().parents[1] / "examples" / "scenarios"
+SCORE_ATOL = 1e-5      # cluster scores, as in chip_smoke.py
 
 
 @pytest.fixture
@@ -163,6 +168,33 @@ def test_cluster_on_card_matches_cpu(cuda):
     for r in res:
         np.testing.assert_allclose(r.outputs, want[r.rid], rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fleet_on_card_kernels_match_plain(cuda):
+    """RM1 + RM2 (reduced, 8 x 1000 x 16 each) on one mixed DDR/NMP pool
+    under ``fleet_shift``'s traffic: both flat kernels launch, and the
+    scores are within SCORE_ATOL of the same fleet served with the plain
+    pooling (``use_kernel=False``) on the card."""
+    spec = ScenarioSpec.load(str(SCENARIOS / "fleet_shift.json"))
+    mixed = dataclasses.replace(spec.topology, mn_types=(
+        "ddr_mn", "ddr_mn", "nmp_mn", "nmp_mn"))
+    members = build_fleet(spec, device=cuda)
+    assert [m.model.cfg.name for m in members] == ["rm1-reduced",
+                                                   "rm2-reduced"]
+    ops.reset_launches()
+    rep = run_fleet(dataclasses.replace(spec, topology=mixed),
+                    fleet=members, device="cuda")
+    assert all(ops.LAUNCHES[k] > 0 for k in KERNELS), ops.LAUNCHES
+    assert rep.completed == rep.total == spec.workload.requests
+    assert all(m.completed > 0 for m in rep.stats.per_model.values())
+    plain = run_fleet(dataclasses.replace(spec, topology=dataclasses.replace(
+        mixed, use_kernel=False)), fleet=members, device="cuda")
+    want = {r.rid: r.outputs for r in plain.results}
+    for r in rep.results:
+        assert np.all(np.isfinite(r.outputs))
+        np.testing.assert_allclose(r.outputs, want[r.rid], rtol=0,
+                                   atol=SCORE_ATOL)
 
 
 @pytest.mark.cuda

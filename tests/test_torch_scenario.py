@@ -1,20 +1,28 @@
 """The port's scenario front door against ``repro.serving.scenario``.
 
-For every single-model preset without an SLA, the port's
-``ScenarioReport.to_dict()`` (stats, phases, audit trail, latency model;
-no scores) equals the reference's field for field, nan-aware, and the
-port's clock sanitizer (``REPRO_CLOCKSAN=1``) finds nothing.  The
-reports' score-parity predicate ``bitwise_equal`` gives the reference's
-answer on the same pairs of runs.
+For every preset in ``examples/scenarios/`` (the SLA-controlled and the
+RM1 + RM2 fleet ones included), the port's ``ScenarioReport.to_dict()``
+(stats, phases, audit trail, latency model; no scores) equals the
+reference's field for field, nan-aware, and the port's clock sanitizer
+(``REPRO_CLOCKSAN=1``) finds nothing.  The reports' score-parity
+predicate ``bitwise_equal`` gives the reference's answer on the same
+pairs of runs.  The preset library, its ``--write-presets`` files and
+the lint CLI's ``--format json`` output are the reference's byte for
+byte, and the serve CLI's cluster flags (``--elastic``,
+``--sla-p99-ms``, ``--models``) give the reference's summary lines.
 """
 import dataclasses
 import functools
+import io
+import json
 import math
+from contextlib import redirect_stdout
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+from repro.launch import serve as jserve
 from repro.serving import scenario as jscenario
 from repro.serving.scenario import ScenarioReport as JaxReport
 from repro.serving.scenario import ScenarioSpec as JaxSpec
@@ -26,8 +34,12 @@ from repro_torch.serving.scenario import (ScenarioReport, ScenarioSpec,
                                           plan_workload, run_scenario)
 
 PRESETS = Path(__file__).resolve().parents[1] / "examples" / "scenarios"
+# the SLA-controlled presets' parity runs in test_torch_autoscaler.py:
+# the reference takes about 20 s for each, and xdist's loadfile then
+# runs them beside this file instead of after it
+SLA_PRESETS = ["flash_crowd", "spike_plus_failure"]
 PORTED = ["failover_storm", "diurnal_elastic", "skew_drift",
-          "mixed_ddr_nmp", "pipeline_burst"]
+          "mixed_ddr_nmp", "pipeline_burst", "fleet_shift"] + SLA_PRESETS
 
 
 def assert_same(a, b, path="report"):
@@ -46,8 +58,7 @@ def assert_same(a, b, path="report"):
         assert a == b, (path, a, b)
 
 
-@pytest.mark.parametrize("name", PORTED)
-def test_preset_report_matches_reference(name, monkeypatch):
+def check_preset_report(name, monkeypatch):
     monkeypatch.setenv("REPRO_CLOCKSAN", "1")     # a finding raises
     clocksan.reset()
     path = str(PRESETS / f"{name}.json")
@@ -61,11 +72,10 @@ def test_preset_report_matches_reference(name, monkeypatch):
     assert got.summary()[1:] == want.summary()[1:]
 
 
-@pytest.mark.parametrize("name", ["flash_crowd", "fleet_shift"])
-def test_unported_branches_raise(name):
-    spec = ScenarioSpec.load(str(PRESETS / f"{name}.json"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_scenario(spec, device="cpu")
+@pytest.mark.parametrize("name", [n for n in PORTED
+                                  if n not in SLA_PRESETS])
+def test_preset_report_matches_reference(name, monkeypatch):
+    check_preset_report(name, monkeypatch)
 
 
 def test_preplanned_stream_is_reused():
@@ -85,11 +95,74 @@ def test_cli_cluster_and_single_unit(capsys):
     out = capsys.readouterr().out
     assert "[serve] scored 8/8 queries" in out
     assert "[serve] scored 4 queries" in out
-    for flags in (["--elastic"], ["--sla-p99-ms", "5"], ["--models", "rm1"]):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            serve.main(["--cluster", "--device", "cpu"] + flags)
+    # the elastic, SLA and fleet flags: the reference's summary lines
+    # (the scored line's mean CTR differs: the weights come from torch's
+    # generator, not JAX's)
+    for flags in (["--elastic", "--cns", "3", "--mns", "6"],
+                  ["--arrival", "poisson", "--sla-p99-ms", "1.5",
+                   "--sla-mode", "decoupled", "--requests", "48"],
+                  ["--models", "rm1,rm2", "--cache-mb", "0.02"]):
+        argv = ["--cluster"] + flags
+        assert serve.main(argv + ["--device", "cpu"]) == 0
+        got = capsys.readouterr().out.splitlines()
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert jserve.main(argv) == 0
+        want = buf.getvalue().splitlines()
+        assert got[0].rsplit(",", 1)[0] == want[0].rsplit(",", 1)[0]
+        assert got[1:] == want[1:], flags
+        assert any(w in " ".join(got) for w in
+                   ("resizes=", "SLA feedback", "model rm2"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         serve.main(["--arch", "qwen3-4b", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", sorted(tscenario.PRESETS))
+def test_preset_matches_reference_and_example(name):
+    got = tscenario.preset(name)
+    assert got.to_dict() == jscenario.preset(name).to_dict()
+    assert got.to_json() == jscenario.preset(name).to_json()
+    assert got == ScenarioSpec.load(str(PRESETS / f"{name}.json"))
+    assert sorted(tscenario.PRESETS) == sorted(jscenario.PRESETS)
+    assert tscenario.smoke_topology() == tscenario.Topology()
+
+
+def test_write_presets_byte_equal_to_reference(tmp_path, capsys):
+    assert tscenario.main(["--write-presets", str(tmp_path / "port")]) == 0
+    assert jscenario.main(["--write-presets", str(tmp_path / "ref")]) == 0
+    port = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert port == sorted(p.name for p in (tmp_path / "ref").iterdir())
+    assert len(port) == len(tscenario.PRESETS)
+    for name in port:
+        assert ((tmp_path / "port" / name).read_bytes()
+                == (tmp_path / "ref" / name).read_bytes()), name
+        assert ((tmp_path / "port" / name).read_bytes()
+                == (PRESETS / name).read_bytes()), name
+
+
+def test_lint_cli_matches_reference(tmp_path, capsys):
+    """``--format json`` (a clean file, a broken one, a missing one) and
+    the text lint are the reference's output; without ``--run`` the lint
+    touches no device."""
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps(dict(
+        json.loads((PRESETS / "fleet_shift.json").read_text()),
+        events=[{"type": "fail_mn", "time_s": 0.01, "mn": 99}])))
+    paths = [str(PRESETS / "failover_storm.json"), str(bad),
+             str(tmp_path / "missing.json")]
+    outs = []
+    for mod in (tscenario, jscenario):
+        rc = mod.main(["--format", "json"] + paths)
+        outs.append((rc, capsys.readouterr().out))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == 1 and json.loads(outs[0][1])["files_checked"] == 3
+    good = [str(PRESETS / f"{n}.json") for n in PORTED]
+    assert tscenario.main(["--format", "json"] + good) == 0
+    assert tscenario.main(good) == 0
+    got = capsys.readouterr().out
+    assert jscenario.main(["--format", "json"] + good) == 0
+    assert jscenario.main(good) == 0
+    assert got == capsys.readouterr().out
 
 
 def test_report_fields_are_the_references():
