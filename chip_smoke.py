@@ -51,12 +51,18 @@ with a non-zero exit and no result line):
    resizes, shard migration included) on the same stream: at least one
    resize, every request completed, scores bitwise equal to the serve
    phase's; (b) ``--cns 1 --mns 2 --mn-type ddr_mn,nmp_mn``, 128
-   requests, once without an SLA and once with ``--sla-p99-ms`` at half
+   requests, once without an SLA (scores within ``SCORE_ATOL`` of the
+   model's one-reduction path) and once with ``--sla-p99-ms`` at half
    that run's virtual-clock p99: the SLA controller acts (its window
    filled), the final pool is larger than {1, 2}, both flat kernels
-   launch and the scores are bitwise equal to the first run's.  Each
-   run prints its wall ms per batch, resizes, migrated bytes, final
-   pool, launches and peak device memory;
+   launch and the scores are bitwise equal to the first run's.  In
+   each run the first launch over each MN shard and table set (after
+   every resize too) is held bitwise against the plain version on its
+   inputs, and the ``ScenarioReport`` against the same spec served on
+   the host with nothing computed (``HostClock``: the virtual clock
+   reads only indices and bytes), field for field.  Each run prints
+   its wall ms per batch, resizes, migrated bytes, final pool,
+   launches and peak device memory;
 8. single unit: ``DLRMServingEngine(use_kernel=True)`` over the whole
    (800, 40000, 128) bank, which needs 64-bit row addresses;
 9. sharded: the table-sharded lookup ``core.sharding.disagg_embedding_
@@ -76,10 +82,13 @@ with a non-zero exit and no result line):
    from RM1 to RM2, then RM2's rows skewed) on the serve phase's pool
    with a 0.05 MB hot-row cache per CN: every request completed, both
    models and both flat kernels served, every score finite, in [0, 1]
-   and within ``SCORE_ATOL`` of its member's one-reduction path; wall
-   ms per batch, batches per model, launches, peak device memory, and
-   RM2's dense tower at batch 64 traced (device ms, the GEMMs' share,
-   the fp32 bound);
+   and within ``SCORE_ATOL`` of its member's one-reduction path; the
+   first launch over each MN shard and table set (each model's tables
+   apart) bitwise equal to the plain version, the report equal to the
+   host clock's, as in elastic; wall ms per batch, batches per model
+   and their sizes, launches, peak device memory, and RM2's dense
+   tower traced at each batch size the fleet ran it at (device ms, the
+   GEMMs' share, the fp32 and weight-read bounds);
 11. lm: smollm-135m at its published widths, nothing cut (30 layers,
    d 576, 9 heads over 3 kv heads, head_dim 64, d_ff 1536, vocab 49152,
    tied, bf16), through ``LMServingEngine.generate``: batch 8, a
@@ -107,9 +116,11 @@ last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -421,13 +432,19 @@ def nmp_build_fields(flat, B, T, D):
 
 
 class MainPathProbe:
-    """Counts ``ClusterEngine._mn_pool`` calls and the batches executed
-    per fleet model, keeps the first call's inputs for each kernel (so
-    the timing phase can replay one real main-path launch; ``keep=False``
-    keeps none, so that a resize frees the old shards), times ``serve``
-    and, with ``profile``, traces it with ``torch.profiler``."""
+    """Counts ``ClusterEngine._mn_pool`` calls and records the batch
+    sizes executed per fleet model, keeps the first call's inputs for
+    each kernel (so the timing phase can replay one real main-path
+    launch; ``keep=False`` keeps none, so that a resize frees the old
+    shards), times ``serve`` and, with ``profile``, traces it with
+    ``torch.profiler``.  With ``check``, the first launch over each
+    MN's shard with each set of tables (so after every resize, for every
+    CN's routing and every fleet model) is held bitwise against the
+    plain version on the same inputs as it happens; the checks' time is
+    left out of ``serve_s``."""
 
-    def __init__(self, profile: bool = False, keep: bool = True):
+    def __init__(self, profile: bool = False, keep: bool = True,
+                 check: bool = False):
         from repro_torch.serving.cluster import ClusterEngine
         self.cls = ClusterEngine
         self.orig_pool = ClusterEngine._mn_pool
@@ -435,34 +452,47 @@ class MainPathProbe:
         self.orig_serve = ClusterEngine.serve
         self.profile = profile
         self.keep = keep
+        self.check = check
         self.prof = None
         self.calls = 0
-        self.batches = {}
+        self.sizes = {}
         self.first = {}
+        self.checked = {}
+        self.check_s = 0.0
         self.serve_s = 0.0
 
     def __enter__(self):
         probe = self
 
         def execute(eng, task, dense, idx, model=0):
-            probe.batches[model] = probe.batches.get(model, 0) + 1
+            probe.sizes.setdefault(model, []).append(dense.shape[0])
             return probe.orig_execute(eng, task, dense, idx, model=model)
 
         def mn_pool(eng, j, tids, idx_sub):
             probe.calls += 1
             name = ("embedding_bag_nmp_flat" if eng.mn_nmp[j]
                     else "embedding_bag_fused_flat")
-            if probe.keep and name not in probe.first:
+            flat = eng._shard_flat[j]
+            key = (name, j, flat.shape[0], tuple(tids))
+            if ((probe.keep and name not in probe.first)
+                    or (probe.check and key not in probe.checked)):
                 slots = [eng._shard_slot[j][t] for t in tids]
                 offsets = torch.tensor(slots, dtype=torch.int32,
                                        device=idx_sub.device) * eng.R
-                probe.first[name] = (eng._shard_flat[j], offsets,
-                                     idx_sub.clone())
-            return probe.orig_pool(eng, j, tids, idx_sub)
+            if probe.keep and name not in probe.first:
+                probe.first[name] = (flat, offsets, idx_sub.clone())
+            out = probe.orig_pool(eng, j, tids, idx_sub)
+            if probe.check and key not in probe.checked:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                check_launch(name, flat, offsets, idx_sub, out)
+                probe.checked[key] = tuple(idx_sub.shape)
+                probe.check_s += time.perf_counter() - t0
+            return out
 
         def serve(eng, *a, **kw):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), probe.check_s
             if probe.profile:
                 acts = [torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]
@@ -473,7 +503,8 @@ class MainPathProbe:
             else:
                 out = probe.orig_serve(eng, *a, **kw)
                 torch.cuda.synchronize()
-            probe.serve_s += time.perf_counter() - t0
+            probe.serve_s += (time.perf_counter() - t0
+                              - (probe.check_s - c0))
             return out
 
         self.cls._mn_pool = mn_pool
@@ -486,6 +517,94 @@ class MainPathProbe:
         self.cls._execute = self.orig_execute
         self.cls.serve = self.orig_serve
         return False
+
+
+def check_launch(name, flat, offsets, idx, out, rows: int = 4) -> None:
+    """One main-path bag launch's output bitwise against the plain
+    version on the same inputs, ``rows`` bags of each table at a time so
+    that the plain version's gather stays small beside the peak memory
+    the phase reports."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_flat_plain
+    for b in range(0, idx.shape[0], rows):
+        want = embedding_bag_flat_plain(flat, offsets, idx[b:b + rows])
+        assert torch.equal(out[b:b + rows], want), (
+            name, tuple(flat.shape), tuple(idx.shape), b,
+            float((out[b:b + rows] - want).abs().max()))
+
+
+class HostClock:
+    """Serves on the host with nothing computed: no shard is built,
+    every bag pools to zeros and every dense tower returns zeros, over
+    zero-stride banks (``host_bank``).  The virtual clock reads only
+    indices and bytes, so a card run's ``ScenarioReport.to_dict()`` must
+    equal the same spec's under this stand-in field for field."""
+
+    def __enter__(self):
+        from repro_torch.models.dlrm import DLRMModel
+        from repro_torch.serving.cluster import ClusterEngine
+        stubs = {
+            (ClusterEngine, "_build_shards"): lambda eng: None,
+            (ClusterEngine, "_fleet_embed"): lambda eng: {
+                "embed": torch.zeros(()).expand(eng.T, eng.R, eng.D)},
+            (ClusterEngine, "_mn_pool"): lambda eng, j, tids, idx_sub:
+                torch.zeros(idx_sub.shape[0], len(tids), eng.D),
+            (DLRMModel, "dense_forward"): lambda m, params, dense, pooled:
+                torch.zeros(dense.shape[0]),
+        }
+        self.orig = {k: getattr(*k) for k in stubs}
+        for (cls, attr), fn in stubs.items():
+            setattr(cls, attr, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, attr), fn in self.orig.items():
+            setattr(cls, attr, fn)
+        return False
+
+
+def host_bank(cfg):
+    """A zero-stride fp32 stand-in for ``cfg``'s (T, R, D) bank on the
+    host: all ``HostClock`` needs of a model's parameters."""
+    r = cfg.dlrm
+    return {"embed": torch.zeros(()).expand(
+        r.num_tables, r.rows_per_table, r.embed_dim)}
+
+
+def same_report(a, b, path="report") -> None:
+    """Equal field for field; nan equals nan."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys(), path
+        for k in a:
+            same_report(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_report(x, y, f"{path}[{i}]")
+    elif isinstance(a, float) and math.isnan(a):
+        assert isinstance(b, float) and math.isnan(b), path
+    else:
+        assert a == b, (path, a, b)
+
+
+def check_scores(reqs, outputs, model_of, dev) -> float:
+    """Every request's scores finite, in [0, 1] and within SCORE_ATOL of
+    its model's one-reduction path ``serve_step`` over 64-sample chunks;
+    ``model_of(req)`` gives the (model, params) pair.  Returns the
+    largest difference."""
+    worst = 0.0
+    for r in reqs:
+        s = outputs[r.rid]
+        assert s.shape == (r.size,) and np.all(np.isfinite(s)), r.rid
+        assert np.all((s >= 0) & (s <= 1)), r.rid
+        model, params = model_of(r)
+        for c in range(0, r.size, 64):
+            batch = {k: torch.from_numpy(v[c:c + 64]).to(dev)
+                     for k, v in r.payload.items()}
+            want = model.serve_step(params, batch).cpu().numpy()
+            np.testing.assert_allclose(s[c:c + 64], want, rtol=0,
+                                       atol=SCORE_ATOL)
+            worst = max(worst, float(np.abs(s[c:c + 64] - want).max()))
+    return worst
 
 
 def profile_summary(prof, traced_s: float, wall_s: float, batches: int,
@@ -875,6 +994,27 @@ def serve_line(phase, what, rep, probe, launches, card) -> None:
         f"virtual p99 {st.p99 * 1e3:.3f} ms; launches {launches}; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
         f"{card}")
+    if probe.check:
+        log(f"[{phase}] the first launch over each shard and table set, "
+            f"bitwise equal to the plain version on its inputs: " + "; ".join(
+                f"{name} x{len(v)}, (B, T, P) from {min(v)} to {max(v)}"
+                for name in KERNELS
+                for v in [[s for k, s in probe.checked.items()
+                           if k[0] == name]] if v)
+            + f"; the checks took {probe.check_s:.3f} s, left out of the "
+            f"wall")
+
+
+def host_clock_check(phase, what, rep, run) -> None:
+    """``rep``, a card run's report, equals ``run()``'s under
+    ``HostClock`` field for field (nan equal to nan)."""
+    t0 = time.perf_counter()
+    with HostClock():
+        host = run()
+    same_report(rep.to_dict(), host.to_dict())
+    log(f"[{phase}] {what}: the report (stats, phases, events, pool) "
+        f"equals the same spec's on the host with nothing computed, field "
+        f"for field ({time.perf_counter() - t0:.2f} s on the host)")
 
 
 def elastic_phase(model, params, flags, stream, scores, card) -> None:
@@ -882,42 +1022,48 @@ def elastic_phase(model, params, flags, stream, scores, card) -> None:
     the ``[serve]`` bank: (a) the ``[serve]`` flags plus ``--elastic``
     (the diurnal ``Autoscaler`` plan as timed resizes, with the FailMN)
     on the same stream, scores bitwise equal to ``[serve]``'s; (b) a
-    {1 CN, 2 MN} pool served without an SLA, then with the SLA
-    controller held to half of that run's virtual-clock p99, which must
-    act, grow the pool and leave the scores bitwise unchanged."""
+    {1 CN, 2 MN} pool served without an SLA, its scores held to the
+    model's one-reduction path, then with the SLA controller held to
+    half of that run's virtual-clock p99, which must act, grow the pool
+    and leave the scores bitwise unchanged.  In every run each shard
+    layout's first launch is held bitwise against the plain version,
+    and the report against the host clock's."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serving.scenario import Resize, plan_workload, run_scenario
+    bank = host_bank(model.cfg)
 
-    def run(argv, stream, kernels=KERNELS):
+    def run(tag, argv, stream, kernels=KERNELS):
         spec = serve.spec_from_flags(serve.parser().parse_args(argv))
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        with MainPathProbe(keep=False) as probe:
+        with MainPathProbe(keep=False, check=True) as probe:
             rep = run_scenario(spec, model=model, params=params,
                                stream=stream)
         launches = dict(ops.LAUNCHES)
+        planned = [e for e in spec.events if isinstance(e, Resize)]
+        serve_line("elastic", f"{tag} {' '.join(argv)}" + (
+            f" ({len(planned)} planned Resize events: " + ", ".join(
+                f"{e.time_s * 1e3:g} ms -> {{{e.n_cn}, {e.m_mn}}}"
+                for e in planned) + ")" if planned else ""),
+            rep, probe, launches, card)
         assert rep.completed == rep.total == len(stream[0])
         assert all(launches[k] > 0 for k in kernels), launches
         assert sum(launches.values()) == probe.calls, (launches, probe.calls)
-        return spec, rep, probe, launches
+        host_clock_check("elastic", tag, rep, lambda: run_scenario(
+            spec, model=model, params=bank, stream=stream, device="cpu"))
+        return rep
 
     # the plan's first Resize (t=0) shrinks the pool to its first two MNs,
     # both DDR, and the MNs it adds later are of the pool's default type
     # (DDR): this run launches the fused kernel only
-    argv = flags + ["--mn-type", "2xddr_mn+2xnmp_mn", "--elastic"]
-    spec, rep, probe, launches = run(argv, stream,
-                                     kernels=["embedding_bag_fused_flat"])
-    planned = [e for e in spec.events if isinstance(e, Resize)]
-    serve_line("elastic", f"(a) {' '.join(argv)} ({len(planned)} planned "
-               f"Resize events: " + ", ".join(
-                   f"{e.time_s * 1e3:g} ms -> {{{e.n_cn}, {e.m_mn}}}"
-                   for e in planned) + ")", rep, probe, launches, card)
+    rep = run("(a)", flags + ["--mn-type", "2xddr_mn+2xnmp_mn", "--elastic"],
+              stream, kernels=["embedding_bag_fused_flat"])
     assert rep.stats.resizes >= 1, rep.stats.resizes
     for r in rep.results:
         assert np.array_equal(r.outputs, scores[r.rid]), r.rid
     log("[elastic] (a) scores bitwise equal to the [serve] phase's")
-    del rep, probe
+    del rep
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -926,18 +1072,18 @@ def elastic_phase(model, params, flags, stream, scores, card) -> None:
             "--mn-type", "ddr_mn,nmp_mn"]
     spec0 = serve.spec_from_flags(serve.parser().parse_args(base))
     stream_b = plan_workload(spec0, model.cfg)
-    _, rep0, probe, launches = run(base, stream_b)
-    serve_line("elastic", f"(b) {' '.join(base)}, no SLA", rep0, probe,
-               launches, card)
+    rep0 = run("(b)", base, stream_b)
     target_ms = rep0.stats.p99 * 1e3 / 2
     want = {r.rid: r.outputs for r in rep0.results}
-    del rep0, probe
+    del rep0
     gc.collect()
     torch.cuda.empty_cache()
-    sla = base + ["--sla-p99-ms", repr(target_ms)]
-    _, rep, probe, launches = run(sla, stream_b)
-    serve_line("elastic", f"(b) the same with --sla-p99-ms {target_ms!r} "
-               f"(half the run's p99)", rep, probe, launches, card)
+    worst = check_scores(stream_b[0], want, lambda r: (model, params),
+                         params["embed"].device)
+    log(f"[elastic] (b) no SLA: every score finite, in [0, 1], and within "
+        f"{SCORE_ATOL} of the model's one-reduction path (worst "
+        f"{worst:.3g})")
+    rep = run("(b) SLA", base + ["--sla-p99-ms", repr(target_ms)], stream_b)
     st = rep.stats
     assert st.sla_actions >= 1 and st.sla_window_filled, st
     assert (rep.final_n_cn >= 1 and rep.final_m_mn >= 2
@@ -945,10 +1091,10 @@ def elastic_phase(model, params, flags, stream, scores, card) -> None:
         (rep.final_n_cn, rep.final_m_mn)
     for r in rep.results:
         assert np.array_equal(r.outputs, want[r.rid]), r.rid
-    log(f"[elastic] (b) the controller emitted {st.sla_actions} resize "
-        f"action(s), window filled; scores bitwise equal to the run "
-        f"without an SLA")
-    del rep, probe
+    log(f"[elastic] (b) with --sla-p99-ms {target_ms!r} (half the run's "
+        f"p99) the controller emitted {st.sla_actions} resize action(s), "
+        f"window filled; scores bitwise equal to the run without an SLA")
+    del rep
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -957,7 +1103,9 @@ def fleet_phase(dev, card) -> None:
     """RM1 V0 and RM2 V0 at their published widths, ``rows_per_table``
     cut to FLEET_ROWS in both (the shared pool needs one table shape),
     served as one fleet under ``fleet_shift``'s traffic on the
-    ``[serve]`` pool through ``run_fleet`` with hand-built members."""
+    ``[serve]`` pool through ``run_fleet`` with hand-built members;
+    each shard layout's first launch is held bitwise against the plain
+    version, the report against the host clock's."""
     from repro_torch.configs import rm1, rm2
     from repro_torch.kernels import ops
     from repro_torch.models.dlrm import DLRMModel
@@ -992,7 +1140,7 @@ def fleet_phase(dev, card) -> None:
         members.append(FleetModel(name=ref.arch, ref=ref, model=model,
                                   params=model.init(0, device=dev)))
     ops.reset_launches()
-    with MainPathProbe(keep=False) as probe:
+    with MainPathProbe(keep=False, check=True) as probe:
         rep = run_fleet(spec, fleet=members, device=dev)
     launches = dict(ops.LAUNCHES)
     serve_line("fleet", f"fleet_shift's traffic ({spec.workload.requests} "
@@ -1001,9 +1149,13 @@ def fleet_phase(dev, card) -> None:
                f"{{2 CN, 4 MN}} 2xddr_mn+2xnmp_mn, batch 64", rep, probe,
                launches, card)
     cs = rep.engine.cache_stats()
+    sizes = {members[k].name: collections.Counter(n)
+             for k, n in sorted(probe.sizes.items())}
     log(f"[fleet] batches executed per model "
-        f"{ {members[k].name: n for k, n in sorted(probe.batches.items())} }; "
-        f"hot-row cache probes {cs.probes} (one Python lookup each, "
+        f"{ {k: sum(n.values()) for k, n in sizes.items()} }, by size "
+        f"(the engine pads each to the batch size) "
+        f"{ {k: dict(n) for k, n in sizes.items()} }; hot-row cache "
+        f"probes {cs.probes} (one Python lookup each, "
         f"{probe.serve_s / cs.probes * 1e6:.2f} us of serve wall per "
         f"probe); per-model stats " + "; ".join(
             f"{n}: {m.completed}/{m.queries} completed, p99 "
@@ -1015,45 +1167,43 @@ def fleet_phase(dev, card) -> None:
     assert all(launches[k] > 0 for k in KERNELS), launches
     assert sum(launches.values()) == probe.calls, (launches, probe.calls)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    results = rep.results
+    outputs = {r.rid: r.outputs for r in rep.results}
+    host = [dataclasses.replace(m, params=host_bank(m.model.cfg))
+            for m in members]
+    host_clock_check("fleet", "fleet_shift", rep,
+                     lambda: run_fleet(spec, fleet=host, device="cpu"))
     del rep, probe
     gc.collect()
     torch.cuda.empty_cache()
     reqs, _ = plan_fleet_workload(spec, members)   # the stream run_fleet served
-    worst = 0.0
-    for r in results:
-        q = reqs[r.rid]
-        m = members[q.model]
-        assert r.outputs.shape == (q.size,) and np.all(np.isfinite(r.outputs))
-        assert np.all((r.outputs >= 0) & (r.outputs <= 1))
-        for c in range(0, q.size, 64):
-            batch = {k: torch.from_numpy(v[c:c + 64]).to(dev)
-                     for k, v in q.payload.items()}
-            want = m.model.serve_step(m.params, batch).cpu().numpy()
-            np.testing.assert_allclose(r.outputs[c:c + 64], want, rtol=0,
-                                       atol=SCORE_ATOL)
-            worst = max(worst, float(np.abs(r.outputs[c:c + 64]
-                                             - want).max()))
+    worst = check_scores(reqs, outputs, lambda r: (
+        members[r.model].model, members[r.model].params), dev)
     log(f"[fleet] every score finite, in [0, 1], and within {SCORE_ATOL} "
-        f"of its member's one-reduction path (worst {worst:.3g})")
-    rm2_dense_trace(members[1], dev, card)
+        f"of its member's one-reduction path (worst {worst:.3g}); samples "
+        f"per request " + ", ".join(
+            f"{m.name} mean {np.mean(n):.2f} max {max(n)}"
+            for k, m in enumerate(members)
+            for n in [[q.size for q in reqs if q.model == k]]))
+    for batch in sorted(sizes["rm2"]):     # the sizes the fleet ran
+        rm2_dense_trace(members[1], dev, card, batch)
     log(f"[fleet] peak device memory {peak_gb:.2f} GB (both banks, their "
         f"concatenation, two replica copies, RM2's dense tower); {card}")
-    del members, results, reqs
+    del members, outputs, reqs
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def rm2_dense_trace(member, dev, card, steps: int = 5) -> None:
-    """RM2's dense tower at batch 64 under ``torch.profiler``: device ms
-    per batch and the GEMM kernels' share of it, beside the fp32 bound
-    from its FLOP count."""
+def rm2_dense_trace(member, dev, card, batch: int, steps: int = 5) -> None:
+    """RM2's dense tower at ``batch`` samples, a size the fleet's serve
+    ran it at, under ``torch.profiler``: device ms per batch and the
+    GEMM kernels' share of it, beside its FLOP count over the fp32 rate
+    and its weights read once over the memory rate."""
     from repro_torch.configs import counting
     cfg = member.model.cfg
     r = cfg.dlrm
     g = torch.Generator(device=dev).manual_seed(0)
-    dense = torch.randn(64, r.num_dense_features, device=dev, generator=g)
-    pooled = torch.randn(64, r.num_tables, r.embed_dim, device=dev,
+    dense = torch.randn(batch, r.num_dense_features, device=dev, generator=g)
+    pooled = torch.randn(batch, r.num_tables, r.embed_dim, device=dev,
                          generator=g)
     step = lambda: member.model.dense_forward(member.params, dense, pooled)
     step()
@@ -1071,12 +1221,17 @@ def rm2_dense_trace(member, dev, card, steps: int = 5) -> None:
     gemm = sum(e.self_device_time_total for e in device
                if "gemm" in e.key.lower() or "cutlass" in e.key.lower()
                ) / 1e3 / steps
-    flops = 64 * counting.dlrm_dense_flops(cfg)
-    bound = flops / FP32_OPS_PER_S * 1e3
-    log(f"[fleet] RM2 dense tower, batch 64, traced x{steps}: device "
-        f"{busy:.3f} ms/batch, GEMM kernels {gemm:.3f} ms "
-        f"({gemm / busy:.3f} of it); {flops / 1e9:.1f} GFLOP/batch, fp32 "
-        f"bound {bound:.3f} ms; top: " + "; ".join(
+    flops = batch * counting.dlrm_dense_flops(cfg)
+    nbytes = sum(t.numel() * t.element_size()
+                 for k, v in member.params.items() if k != "embed"
+                 for t in (v.values() if isinstance(v, dict) else [v]))
+    ops_ms = flops / FP32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[fleet] RM2 dense tower, batch {batch} as the fleet ran it, "
+        f"traced x{steps}: device {busy:.3f} ms/batch, GEMM kernels {gemm:.3f} ms "
+        f"({gemm / busy:.3f} of it); {flops / 1e9:.2f} GFLOP, fp32 bound "
+        f"{ops_ms:.3f} ms, weights {nbytes / 1e9:.3f} GB over the memory "
+        f"rate {bytes_ms:.3f} ms; top: " + "; ".join(
             f"{e.key[:50]} {e.self_device_time_total / 1e3 / steps:.3f}"
             for e in sorted(device, key=lambda e: e.self_device_time_total,
                             reverse=True)[:4]) + f"; {card}")
@@ -1308,18 +1463,9 @@ def main() -> int:
     del rep, eng, probe            # frees the replica shards
     gc.collect()
     torch.cuda.empty_cache()
-    for r in reqs:
-        s = scores[r.rid]
-        assert s.shape == (r.size,) and np.all(np.isfinite(s))
-        assert np.all((s >= 0) & (s <= 1))
-        for c in range(0, r.size, 64):
-            batch = {k: torch.from_numpy(v[c:c + 64]).to(dev)
-                     for k, v in r.payload.items()}
-            want = model.serve_step(params, batch).cpu().numpy()
-            np.testing.assert_allclose(s[c:c + 64], want, rtol=0,
-                                       atol=SCORE_ATOL)
+    worst = check_scores(reqs, scores, lambda r: (model, params), dev)
     log(f"[serve] every score finite, in [0, 1], and within {SCORE_ATOL} "
-        f"of the model's one-reduction path")
+        f"of the model's one-reduction path (worst {worst:.3g})")
     ops.reset_launches()
     spec_ddr = serve.spec_from_flags(serve.parser().parse_args(
         flags + ["--mn-type", "ddr_mn"]))

@@ -18,11 +18,13 @@ the scalar one), 1e-4 on o and l and 1e-5 on m for the decode partials,
 whose two launches on the same inputs are bitwise equal.  The cluster on
 the card is held against the same cluster on the CPU: equal stats,
 scores within rtol=1e-5, atol=1e-6; the RM1 + RM2 fleet on the card
-against itself with the plain pooling: scores within 1e-5; the LM on the
+against itself with the plain pooling: scores within 1e-5, and against
+the same fleet on the CPU: an equal report; the LM on the
 card against the LM on the CPU: fp32 logits within 1e-4, equal tokens.
 """
 import ctypes
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -173,9 +175,11 @@ def test_cluster_on_card_matches_cpu(cuda):
 @pytest.mark.cuda
 def test_fleet_on_card_kernels_match_plain(cuda):
     """RM1 + RM2 (reduced, 8 x 1000 x 16 each) on one mixed DDR/NMP pool
-    under ``fleet_shift``'s traffic: both flat kernels launch, and the
+    under ``fleet_shift``'s traffic: both flat kernels launch, the
     scores are within SCORE_ATOL of the same fleet served with the plain
-    pooling (``use_kernel=False``) on the card."""
+    pooling (``use_kernel=False``) on the card, and the report equals the
+    same fleet's on the CPU field for field (the virtual clock reads only
+    indices and bytes)."""
     spec = ScenarioSpec.load(str(SCENARIOS / "fleet_shift.json"))
     mixed = dataclasses.replace(spec.topology, mn_types=(
         "ddr_mn", "ddr_mn", "nmp_mn", "nmp_mn"))
@@ -195,6 +199,10 @@ def test_fleet_on_card_kernels_match_plain(cuda):
         assert np.all(np.isfinite(r.outputs))
         np.testing.assert_allclose(r.outputs, want[r.rid], rtol=0,
                                    atol=SCORE_ATOL)
+    host = run_fleet(dataclasses.replace(spec, topology=mixed),
+                     fleet=build_fleet(spec, device="cpu"), device="cpu")
+    assert (json.dumps(rep.to_dict(), sort_keys=True, default=repr)
+            == json.dumps(host.to_dict(), sort_keys=True, default=repr))
 
 
 @pytest.mark.cuda
