@@ -108,7 +108,33 @@ with a non-zero exit and no result line):
    equal and the host time per call of the wrapper and of SDPA (the
    eager decode step is paced by the host); an fp32 copy of the model (the scalar attention kernel)
    generates the same tokens through the kernels as through their plain
-   versions.
+   versions;
+12. zoo: the LM zoo's attention families at their published widths,
+   bf16 random weights from a seeded ``torch.Generator``, each built,
+   served and freed before the next (the leaf count equals
+   ``param_count()``): qwen2.5-14b (48 heads padded from 40 over 8 kv
+   heads, QKV bias), qwen3-4b (q/k norm), llama3-8b, qwen2-moe-a2.7b (60
+   experts padded to 64, top-4, a shared expert), phi3.5-moe-42b-a6.6b
+   (16 experts, top-2; cut: 32 -> 8 layers, since 32 need 83.7 GB),
+   llava-next-mistral-7b (576 seeded patch embeddings before the prompt)
+   and whisper-large-v3 (seeded (4, 1500, 1280) bf16 frames), through
+   ``LMServingEngine.generate(extra=)``: batch 4, 16 decode steps, a
+   512-token prompt in a 1024-slot cache (llava: 2048; whisper: 64
+   tokens, 256 slots).  The counters are zeroed just before and read
+   just after: flash attention ``num_layers`` launches a prefill (whisper
+   96: encoder, self and cross), all on the tensor-core kernel, flash
+   decode ``num_layers`` x 16 (whisper 2 x 32 x 16).  Each kernel is held
+   against its plain version at the first launch of each attention kind
+   and at the first and last decode launch over each cache (whisper's
+   cross cache too, ``pos`` past its end), and timed there beside SDPA;
+   an MoE decode step runs under sync debug mode 'error', twice from
+   copies of one cache, with bitwise-equal logits.  Each prints prefill
+   ms, decode ms per step, tokens/s, peak memory, launches and the MoE
+   pairs dropped at prefill.  Then a 2-layer fp32 copy of each family
+   at full width (llama3-8b, qwen2-moe, llava, whisper with 2 + 2 layers)
+   generates the same greedy tokens through the kernels as through
+   their plain versions, prefill logits within 1e-4.  The kernels' JSON
+   rows gain each zoo arch's launches (``zoo_launches``).
 
 All timing lives here, never in ``src/`` (the repo's linter bans host
 clocks there).  The line before the last is ``{"kernels": [...]}``; the
@@ -157,6 +183,20 @@ SOURCES = ["embedding_bag", "flash_attention", "flash_decode"]
 SHARDED_BATCH = 64             # bags per table in the sharded phase
 CARD_BYTES = 80e9              # the H100's device memory
 LM_BATCH, LM_PROMPT, LM_CACHE, LM_STEPS = 8, 1024, 2048, 64
+ZOO = [  # arch, num_layers cut to (None: its published depth)
+    ("qwen2.5-14b", None), ("qwen3-4b", None), ("llama3-8b", None),
+    ("qwen2-moe-a2.7b", None),
+    ("phi3.5-moe-42b-a6.6b", 8),       # 83.7 GB at 32 layers: not one card
+    ("llava-next-mistral-7b", None), ("whisper-large-v3", None)]
+ZOO_BATCH, ZOO_STEPS = 4, 16
+#: family -> (prompt tokens, cache slots): text archs 512 tokens in a
+#: 1024-slot cache; llava 512 behind its 576 patches; whisper 64 tokens
+#: behind its 1500 frames
+ZOO_SHAPES = {"dense": (512, 1024), "moe": (512, 1024), "vlm": (512, 2048),
+              "audio": (64, 256)}
+#: the full-width fp32 copies, 2 layers (2 + 2 for whisper): one per family
+ZOO_FP32 = ["llama3-8b", "qwen2-moe-a2.7b", "llava-next-mistral-7b",
+            "whisper-large-v3"]
 
 
 def log(msg: str) -> None:
@@ -636,50 +676,66 @@ def profile_summary(prof, traced_s: float, wall_s: float, batches: int,
 
 
 class LMProbe:
-    """Keeps the inputs of the first prefill flash-attention launch and
-    of the last flash-decode launch (references, no copies: the last
-    launch's cache slice is never written again), and times the prefill
-    against the whole ``generate`` with host clocks around syncs."""
+    """Keeps the inputs of the first flash-attention launch of each kind
+    (causal or not, S = T or not: whisper's encoder, self and cross
+    attention) and of the first and last flash-decode launch over each
+    cache length (whisper's self and cross caches), by reference, with no
+    copies: a cache slice's rows are written only at later positions;
+    times ``model``'s prefill with host clocks around syncs, against the
+    whole ``generate``; and sums the MoE pairs dropped at prefill on the
+    device (no sync inside the run)."""
 
-    def __init__(self):
+    def __init__(self, model):
         from repro_torch.kernels import ops
-        from repro_torch.models.transformer import DecoderLM
-        self.ops, self.cls = ops, DecoderLM
+        from repro_torch.models import moe
+        self.ops, self.moe, self.cls = ops, moe, type(model)
         self.orig = (ops.flash_attention, ops.flash_decode_partial,
-                     DecoderLM.prefill)
-        self.first_attn = None
-        self.last_decode = None
+                     moe.dispatch, self.cls.prefill)
+        self.attn, self.decode_first, self.decode_last = {}, {}, {}
+        self.dropped, self.pairs = [], 0
+        self.in_prefill = False
         self.prefill_s = 0.0
 
     def __enter__(self):
         probe = self
-        attn, decode, prefill = self.orig
+        attn, decode, dispatch, prefill = self.orig
 
         def flash_attention(q, k, v, **kw):
-            if probe.first_attn is None:
-                probe.first_attn = (q, k, v, kw)
+            key = (kw.get("causal", True), q.shape[2] == k.shape[2])
+            probe.attn.setdefault(key, (q, k, v, kw))
             return attn(q, k, v, **kw)
 
         def flash_decode_partial(q, kc, vc, pos, **kw):
-            probe.last_decode = (q, kc, vc, pos, kw)
+            probe.decode_first.setdefault(kc.shape[1], (q, kc, vc, pos, kw))
+            probe.decode_last[kc.shape[1]] = (q, kc, vc, pos, kw)
             return decode(q, kc, vc, pos, **kw)
+
+        def counted_dispatch(ids, Ep, capacity):
+            slot, keep = dispatch(ids, Ep, capacity)
+            if probe.in_prefill:
+                probe.dropped.append((~keep).sum())
+                probe.pairs += keep.numel()
+            return slot, keep
 
         def timed_prefill(model, *a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            probe.in_prefill = True
             out = prefill(model, *a, **kw)
+            probe.in_prefill = False
             torch.cuda.synchronize()
             probe.prefill_s += time.perf_counter() - t0
             return out
 
         self.ops.flash_attention = flash_attention
         self.ops.flash_decode_partial = flash_decode_partial
+        self.moe.dispatch = counted_dispatch
         self.cls.prefill = timed_prefill
         return self
 
     def __exit__(self, *exc):
         (self.ops.flash_attention, self.ops.flash_decode_partial,
-         self.cls.prefill) = self.orig
+         self.moe.dispatch, self.cls.prefill) = self.orig
         return False
 
 
@@ -709,15 +765,49 @@ def _sdpa(q, k, v, causal):
         q, k, v, is_causal=causal, enable_gqa=True)
 
 
-def kernel_row(name, ms, plain_ms, library_ms, err, launches, nbytes, flops,
-               ops_per_s):
+def bound(nbytes, flops, ops_per_s):
+    """The least time the card could take for the work -> (ms, "bytes"
+    or "operations"): the larger of the bytes over the memory rate and
+    the operations over the peak rate."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / ops_per_s * 1e3
+    return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+            else (ops_ms, "operations"))
+
+
+def peak_ops(dtype) -> float:
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+
+
+def attention_work(q, k, causal):
+    """(bytes, flops) of one flash-attention call: q, k, v read and o
+    written once; Q K^T and P V over the (query, key) pairs the mask
+    keeps."""
+    B, H, S, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    pairs = (sum(min(i + 1, T) for i in range(S)) if causal else S * T)
+    return ((2 * B * H * S * D + 2 * B * Hkv * T * D) * q.element_size(),
+            4 * B * H * D * pairs)
+
+
+def decode_work(q, kc, n):
+    """(bytes, flops) of one flash-decode call over ``n`` live cache
+    rows: those rows of K and V and q read once, the fp32 partials
+    written once."""
+    B, H, D = q.shape
+    Hkv = kc.shape[2]
+    return (2 * B * n * Hkv * D * kc.element_size()
+            + B * H * D * q.element_size() + B * H * (D + 2) * 4,
+            4 * B * H * D * n)
+
+
+def kernel_row(name, ms, plain_ms, library_ms, err, launches, nbytes, flops,
+               ops_per_s):
+    bound_ms, bound_by = bound(nbytes, flops, ops_per_s)
     return {"name": name, "route": "cuda", "source": ROW_KERNELS[name][1],
             "replaces": ROW_KERNELS[name][0], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
 
 
@@ -756,6 +846,52 @@ def ptxas_info(source: str, entry: str):
     return next(iter(ptxas_all(source, entry).values()), None)
 
 
+def hold_attention(q, k, v, kw):
+    """flash_attention against its plain version on one launch's inputs
+    (``cases.ATTN_TOL``) -> (the kernel's output, max abs error, its
+    device ms back to back, SDPA's)."""
+    from repro_torch.kernels import cases, ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    causal = kw.get("causal", True)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    atol, rtol = cases.ATTN_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    err = float((got.float() - want.float()).abs().max())
+    return (got, err,
+            device_ms(lambda: ops.flash_attention(q, k, v, causal=causal)),
+            device_ms(lambda: _sdpa(q, k, v, causal)))
+
+
+def live_rows(kc, pos, kw) -> int:
+    """The cache rows a decode launch reads: those at or before ``pos``."""
+    return min(int(pos) + 1 - kw.get("kv_offset", 0), kc.shape[1])
+
+
+def hold_decode(q, kc, vc, pos, kw):
+    """flash_decode_partial against its plain version on one launch's
+    inputs (``cases.DECODE_TOL``), two launches bitwise equal -> (the
+    kernel's partials, max abs error, their device ms back to back,
+    SDPA's over the live rows: the normalised output)."""
+    from repro_torch.kernels import cases, ops
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    got = ops.flash_decode_partial(q, kc, vc, pos, **kw)
+    want = flash_decode_plain(q, kc, vc, pos, **kw)
+    for g, w, tol in zip(got, want, cases.DECODE_TOL):
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+    again = ops.flash_decode_partial(q, kc, vc, pos, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    n = live_rows(kc, pos, kw)
+    qh, kh, vh = (q[:, :, None, :], kc[:, :n].transpose(1, 2),
+                  vc[:, :n].transpose(1, 2))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return (got, err,
+            device_ms(lambda: ops.flash_decode_partial(q, kc, vc, pos,
+                                                       **kw)),
+            device_ms(lambda: _sdpa(qh, kh, vh, False)))
+
+
 def time_attention(q, k, v, kw, launches, card):
     """flash_attention at the first prefill launch's inputs, and on fp32
     copies of them (same shapes and strides), each against its plain
@@ -774,32 +910,22 @@ def time_attention(q, k, v, kw, launches, card):
     torch.testing.assert_close(out32, plain32, atol=atol, rtol=rtol)
     err32 = float((out32 - plain32).abs().max())
     del q32, k32, v32, out32, plain32
-    out = ops.flash_attention(q, k, v, causal=causal)
-    plain = flash_attention_plain(q, k, v, **kw)
-    atol, rtol = cases.ATTN_TOL[q.dtype]
-    torch.testing.assert_close(out.float(), plain.float(), atol=atol,
-                               rtol=rtol)
-    err = float((out.float() - plain.float()).abs().max())
+    out, err, dev_ms, lib_dev_ms = hold_attention(q, k, v, kw)
     lib_err = float((_sdpa(q, k, v, causal).float() - out.float()).abs()
                     .max())
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    pairs = (sum(min(i + 1, T) for i in range(S)) if causal else S * T)
-    flops = 4 * B * H * D * pairs
-    nbytes = (2 * B * H * S * D + 2 * B * Hkv * T * D) * q.element_size()
+    nbytes, flops = attention_work(q, k, causal)
     ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
                    iters=50)
     plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
                          iters=5, warmup=1)
     library_ms = median_ms(lambda: _sdpa(q, k, v, causal), iters=50)
-    ops_per_s = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else \
-        FP32_OPS_PER_S
+    ops_per_s = peak_ops(q.dtype)
     row = kernel_row("flash_attention", ms, plain_ms, library_ms, err,
                      launches, nbytes, flops, ops_per_s)
     # the same two calls' device time alone, without the host's dispatch
-    row["device_ms"] = device_ms(
-        lambda: ops.flash_attention(q, k, v, causal=causal))
-    row["library_device_ms"] = device_ms(lambda: _sdpa(q, k, v, causal))
+    row["device_ms"], row["library_device_ms"] = dev_ms, lib_dev_ms
     row["fp32_max_abs_err"] = err32     # the same inputs widened to fp32
     kind = fa.variant(q.dtype, D)
     row["variant"] = kind
@@ -827,41 +953,30 @@ def time_decode(q, kc, vc, pos, kw, launches, card):
     library yardstick, SDPA over cache[:, :pos+1], computes the
     normalised output: the kernel's partials plus the combine.  Two
     launches must be bitwise equal (the splits merge in a fixed order)."""
-    from repro_torch.kernels import cases, ops
+    from repro_torch.kernels import ops
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.models.layers import combine_partials
-    got = ops.flash_decode_partial(q, kc, vc, pos, **kw)
-    want = flash_decode_plain(q, kc, vc, pos, **kw)
-    for g, w, tol in zip(got, want, cases.DECODE_TOL):
-        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
-    again = ops.flash_decode_partial(q, kc, vc, pos, **kw)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    got, err, dev_ms, lib_dev_ms = hold_decode(q, kc, vc, pos, kw)
     B, H, D = q.shape
     T, Hkv = kc.shape[1], kc.shape[2]
-    n = int(pos) + 1 - kw.get("kv_offset", 0)      # rows this step reads
+    n = live_rows(kc, pos, kw)                     # rows this step reads
     qh = q[:, :, None, :]
     kh = kc[:, :n].transpose(1, 2)
     vh = vc[:, :n].transpose(1, 2)
     lib_err = float((_sdpa(qh, kh, vh, False)[:, :, 0].float()
                      - combine_partials(*got)).abs().max())
-    flops = 4 * B * H * D * n
-    nbytes = (2 * B * n * Hkv * D * kc.element_size()
-              + B * H * D * q.element_size() + B * H * (D + 2) * 4)
+    nbytes, flops = decode_work(q, kc, n)
     ms = median_ms(lambda: ops.flash_decode_partial(q, kc, vc, pos, **kw),
                    iters=50)
     plain_ms = median_ms(lambda: flash_decode_plain(q, kc, vc, pos, **kw),
                          iters=5, warmup=1)
     library_ms = median_ms(lambda: _sdpa(qh, kh, vh, False), iters=50)
-    ops_per_s = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else \
-        FP32_OPS_PER_S
+    ops_per_s = peak_ops(q.dtype)
     row = kernel_row("flash_decode_partial", ms, plain_ms, library_ms, err,
                      launches, nbytes, flops, ops_per_s)
     # the same calls' device time alone, without the host's dispatch
-    row["device_ms"] = device_ms(
-        lambda: ops.flash_decode_partial(q, kc, vc, pos, **kw))
-    row["library_device_ms"] = device_ms(lambda: _sdpa(qh, kh, vh, False))
+    row["device_ms"], row["library_device_ms"] = dev_ms, lib_dev_ms
     # the wrapper's host path per call, which paces the eager decode step
     row["host_ms"] = host_ms(
         lambda: ops.flash_decode_partial(q, kc, vc, pos, **kw))
@@ -1238,21 +1353,22 @@ def rm2_dense_trace(member, dev, card, batch: int, steps: int = 5) -> None:
 
 
 def lm_trace(model, params, prompt, prefill_s, step_s, card,
-             steps: int = 8) -> None:
+             steps: int = 8, cache_len: int = LM_CACHE, extra=None,
+             what: str = "lm") -> None:
     """The main path's prefill, then ``steps`` decode steps, once more
     under ``torch.profiler``: device busy time and idle share against
     the untraced times, and the top kernels of each."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     dev = params["embed"].device
-    batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+    batch = dict(extra or {}, tokens=torch.from_numpy(prompt).to(dev))
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, batch, cache_len=LM_CACHE)
+        logits, cache = model.prefill(params, batch, cache_len=cache_len)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    profile_summary(prof, traced_s, prefill_s, 1, card, what="lm prefill",
-                    unit="prefill")
+    profile_summary(prof, traced_s, prefill_s, 1, card,
+                    what=f"{what} prefill", unit="prefill")
     tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1263,7 +1379,7 @@ def lm_trace(model, params, prompt, prefill_s, step_s, card,
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     profile_summary(prof, traced_s, step_s * steps, steps, card,
-                    what="lm decode", unit="step")
+                    what=f"{what} decode", unit="step")
 
 
 def lm_phase(dev, card):
@@ -1296,7 +1412,7 @@ def lm_phase(dev, card):
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    with LMProbe() as probe:
+    with LMProbe(model) as probe:
         t0 = time.perf_counter()
         tokens = engine.generate(prompt, steps=LM_STEPS)
         torch.cuda.synchronize()
@@ -1340,9 +1456,9 @@ def lm_phase(dev, card):
         "sync inside it")
     lm_trace(model, params, prompt, probe.prefill_s, decode_s / LM_STEPS,
              card)
-    rows = [time_attention(*probe.first_attn, launches["flash_attention"],
-                           card),
-            time_decode(*probe.last_decode,
+    rows = [time_attention(*probe.attn[(True, True)],
+                           launches["flash_attention"], card),
+            time_decode(*probe.decode_last[LM_CACHE],
                         launches["flash_decode_partial"], card)]
     del probe, engine
     gc.collect()
@@ -1376,6 +1492,219 @@ def lm_phase(dev, card):
         f"{err:.3g} of the plain-attention path (tolerance 1e-4), greedy "
         f"tokens equal")
     return rows
+
+
+def zoo_inputs(cfg, rng, batch: int, prompt: int, dev, dtype):
+    """A seeded prompt and the prefill's other inputs on the card in
+    ``dtype``: llava's patch embeddings, whisper's frames."""
+    toks = rng.randint(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["images"] = torch.from_numpy(rng.randn(
+            batch, cfg.vlm.num_patches, cfg.d_model).astype(np.float32)
+        ).to(dev, dtype)
+    if cfg.family == "audio":
+        extra["frames"] = torch.from_numpy(rng.randn(
+            batch, cfg.encdec.encoder_seq, cfg.d_model).astype(np.float32)
+        ).to(dev, dtype)
+    return toks, extra
+
+
+def zoo_launches(cfg, steps: int):
+    """(flash-attention launches a prefill, flash-decode launches over
+    ``steps`` decode steps)."""
+    if cfg.family == "audio":         # encoder, decoder self and cross
+        return (cfg.encdec.num_encoder_layers + 2 * cfg.num_layers,
+                2 * cfg.num_layers * steps)
+    return cfg.num_layers, cfg.num_layers * steps
+
+
+def zoo_model(arch, layers, dev, card):
+    """One arch at its published widths through ``LMServingEngine``;
+    returns its launches."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serving.engine import LMServingEngine
+
+    cfg = configs.get_config(arch)
+    cut = ""
+    if layers is not None:
+        cut = f"; cut: num_layers {cfg.num_layers} -> {layers}"
+        cfg = cfg.replace(num_layers=layers)
+    model = registry.build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    assert n_params == model.param_count(), (n_params, model.param_count())
+    prompt_len, cache_len = ZOO_SHAPES[cfg.family]
+    rng = np.random.RandomState(0)
+    prompt, extra = zoo_inputs(cfg, rng, ZOO_BATCH, prompt_len, dev,
+                               torch.bfloat16)
+    engine = LMServingEngine(model, params, cache_len=cache_len, device=dev)
+    engine.generate(prompt[:, :16], steps=2, extra=extra)   # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with LMProbe(model) as probe:
+        t0 = time.perf_counter()
+        tokens = engine.generate(prompt, steps=ZOO_STEPS, extra=extra)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_s = total_s - probe.prefill_s
+    attn_n, decode_n = zoo_launches(cfg, ZOO_STEPS)
+    assert launches["flash_attention"] == attn_n, launches
+    assert variants == {"wgmma": attn_n, "scalar": 0}, variants
+    assert launches["flash_decode_partial"] == decode_n, launches
+    assert sum(launches.values()) == attn_n + decode_n, launches
+    assert tokens.shape == (ZOO_BATCH, ZOO_STEPS)
+    assert tokens.min() >= 0 and tokens.max() < model.vp
+    dropped = int(sum(probe.dropped)) if probe.dropped else None
+    pairs, prefill_s = probe.pairs, probe.prefill_s
+
+    held = []
+    for (causal, square), args in sorted(probe.attn.items()):
+        _, err, ms, lib = hold_attention(*args)
+        q, k = args[0], args[1]
+        b, by = bound(*attention_work(q, k, causal), peak_ops(q.dtype))
+        held.append(f"attention {tuple(q.shape)} over T={k.shape[2]} "
+                    f"causal={causal}: err {err:.3g}, device {ms:.5f} ms "
+                    f"(SDPA {lib:.5f}; bound {b:.5f}, {by})")
+    for T in sorted(probe.decode_last):
+        for which, args in (("first", probe.decode_first[T]),
+                            ("last", probe.decode_last[T])):
+            _, err, ms, lib = hold_decode(*args)
+            q, kc = args[0], args[1]
+            b, by = bound(*decode_work(q, kc, live_rows(kc, args[3],
+                                                        args[4])),
+                          peak_ops(q.dtype))
+            held.append(f"decode {which} over T={T} pos={int(args[3])} "
+                        f"{tuple(q.shape)}: err {err:.3g}, device "
+                        f"{ms:.5f} ms (SDPA {lib:.5f}; bound {b:.5f}, "
+                        f"{by})")
+    del probe
+
+    moe_line = ""
+    if cfg.moe is not None:
+        # one decode step under sync debug mode, twice from copies of one
+        # cache: no host sync and bitwise-equal logits
+        logits, cache = model.prefill(
+            params, {"tokens": torch.from_numpy(prompt[:, :64]).to(dev)},
+            cache_len=128)
+        tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+        copies = [{k: v.clone() for k, v in cache.items()} for _ in range(2)]
+        del cache
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [model.decode_step(params, c, {"tokens": tok})[0]
+                    for c in copies]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(outs[0], outs[1])
+        del copies, outs, logits, tok
+        moe_line = (f"; MoE pairs dropped at prefill {dropped} of "
+                    f"{pairs} (capacity factor "
+                    f"{cfg.moe.capacity_factor}); a decode step ran under "
+                    f"sync debug mode 'error', twice from one cache: "
+                    f"logits bitwise equal")
+    log(f"[zoo] {arch} ({cfg.family}) at its published widths "
+        f"(d {cfg.d_model}, {cfg.num_layers} layers, {cfg.num_heads} heads"
+        f" padded to {cfg.padded_heads} over {cfg.num_kv_heads} kv heads, "
+        f"head_dim {cfg.resolved_head_dim}, vocab {cfg.vocab_size}"
+        f"{cut}), {n_params} parameters, bf16: batch {ZOO_BATCH}, prompt "
+        f"{prompt_len}, cache {cache_len}, {ZOO_STEPS} steps; prefill "
+        f"{prefill_s * 1e3:.3f} ms; decode "
+        f"{decode_s / ZOO_STEPS * 1e3:.3f} ms per step; "
+        f"{ZOO_BATCH * ZOO_STEPS / decode_s:.1f} generated tokens/s; peak "
+        f"device memory {peak_gb:.3f} GB; launches {launches}, attention "
+        f"by kernel {variants}{moe_line}; set-up {setup_s:.1f} s; {card}")
+    for line in held:
+        log(f"[zoo] {arch} {line}")
+    lm_trace(model, params, prompt, prefill_s, decode_s / ZOO_STEPS, card,
+             steps=2, cache_len=cache_len, extra=extra, what=arch)
+    del engine, params, model, prompt, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ("flash_attention",
+                                     "flash_decode_partial")}
+
+
+def zoo_fp32_copy(arch, dev, card) -> None:
+    """A 2-layer fp32 copy of ``arch`` at its published widths (2 + 2
+    layers for whisper; the scalar attention kernel): the same greedy
+    tokens through the kernels as through their plain versions, prefill
+    logits within 1e-4 (the repo's fp32 parity tolerance)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import LMServingEngine
+
+    cfg = configs.get_config(arch).replace(num_layers=2, dtype="float32",
+                                           param_dtype="float32")
+    if cfg.encdec is not None:
+        cfg = cfg.replace(encdec=dataclasses.replace(
+            cfg.encdec, num_encoder_layers=2))
+    model = registry.build(cfg)
+    params = model.init(0, device=dev)
+    prompt, extra = zoo_inputs(cfg, np.random.RandomState(1), 2, 96, dev,
+                               torch.float32)
+    prefix = cfg.vlm.num_patches if cfg.vlm is not None else 0
+    cache_len = prefix + 128
+    batch = dict(extra, tokens=torch.from_numpy(prompt).to(dev))
+    ops.reset_launches()
+    logits_k, _ = model.prefill(params, batch, cache_len=cache_len)
+    tok_k = LMServingEngine(model, params, cache_len=cache_len,
+                            device=dev).generate(prompt, steps=8, extra=extra)
+    attn_n, decode_n = zoo_launches(cfg, 8)
+    assert ops.LAUNCHES["flash_attention"] == 2 * attn_n, ops.LAUNCHES
+    assert fa.VARIANT_LAUNCHES == {"wgmma": 0, "scalar": 2 * attn_n}
+    assert ops.LAUNCHES["flash_decode_partial"] == decode_n, ops.LAUNCHES
+    with PlainAttention():
+        logits_p, _ = model.prefill(params, batch, cache_len=cache_len)
+        tok_p = LMServingEngine(model, params, cache_len=cache_len,
+                                device=dev).generate(prompt, steps=8,
+                                                     extra=extra)
+    assert bool(torch.isfinite(logits_k).all())
+    err = float((logits_k - logits_p).abs().max())
+    torch.testing.assert_close(logits_k, logits_p, atol=1e-4, rtol=1e-4)
+    assert np.array_equal(tok_k, tok_p), (tok_k, tok_p)
+    log(f"[zoo] {arch} fp32 copy, {cfg.num_layers} layers at full width, "
+        f"prompt (2, 96) behind {prefix or 'no'} patches"
+        f"{f', {cfg.encdec.encoder_seq} frames' if cfg.encdec else ''}, "
+        f"8 steps: "
+        f"prefill logits within {err:.3g} of the plain-attention path "
+        f"(tolerance 1e-4), greedy tokens equal; {card}")
+    del model, params, batch, extra, logits_k, logits_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zoo_phase(dev, card, rows) -> None:
+    """The zoo's seven archs at full width, then the fp32 copies; adds
+    each arch's launches to the attention kernels' rows."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[zoo] device memory in use at the start "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    launches = {arch: zoo_model(arch, layers, dev, card)
+                for arch, layers in ZOO}
+    for arch in ZOO_FP32:
+        zoo_fp32_copy(arch, dev, card)
+    for row in rows:
+        if row["name"] in ("flash_attention", "flash_decode_partial"):
+            row["zoo_launches"] = {arch: n[row["name"]]
+                                   for arch, n in launches.items()}
+    log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s; {card}")
 
 
 def main() -> int:
@@ -1519,6 +1848,9 @@ def main() -> int:
 
     # ----------------------------------------------------------------- lm
     rows += lm_phase(dev, card)
+
+    # ---------------------------------------------------------------- zoo
+    zoo_phase(dev, card, rows)
 
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -1,17 +1,61 @@
 """Model configs for the models this port serves.
 
-The counterpart of ``repro.configs.base``: ``ModelConfig`` keeps the
-fields the RM1/RM2 modules and the dense decoder family (smollm-135m)
-read, with the reference's defaults, and ``DLRMConfig`` is the paper's
-model shape.  The MoE, SSM, encoder-decoder and VLM sub-configs arrive
-with the rest of the LM zoo (ROADMAP Queue 1 item 6); until then
-``moe`` is always None.
+The counterpart of ``repro.configs.base``: ``ModelConfig`` with the
+reference's fields and defaults, its sub-configs (``MoEConfig``,
+``SSMConfig``, ``EncDecConfig``, ``VLMConfig``) and ``DLRMConfig``, the
+paper's model shape.  ``scan_layers`` and ``remat`` are kept so that a
+config compares field for field with the reference's; the port reads
+neither (it loops over layers in Python and does not train yet).
+``ShapeConfig`` and ``MeshConfig`` wait for training and the mesh
+(ROADMAP Queue 1 items 7 and 8).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    d_ff_shared: int = 0
+    # expert-parallel padding: pad num_experts up to a multiple of the model
+    # axis so EP divides evenly (qwen2-moe: 60 -> 64).
+    ep_pad_to: Optional[int] = None
+    router_aux_loss: float = 0.001
+    capacity_factor: float = 1.25
+
+    @property
+    def padded_experts(self) -> int:
+        return self.ep_pad_to or self.num_experts
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD parameters (zamba2) or RWKV6 parameters."""
+    d_state: int = 64
+    expand: int = 2
+    head_dim: int = 64
+    conv_width: int = 4
+    chunk: int = 256          # chunked-scan block length
+    # zamba2 hybrid: one (shared) attention block every `attn_every` layers.
+    attn_every: int = 0       # 0 = pure SSM stack
+    shared_attn_params: bool = True
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    num_encoder_layers: int = 32
+    encoder_seq: int = 1500   # whisper: 30s of audio -> 1500 frames (stub)
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    num_patches: int = 576    # anyres base tile, 24x24 patches (stub embeds)
 
 
 @dataclass(frozen=True)
@@ -33,7 +77,7 @@ class DLRMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str               # dense | dlrm (the other families: zoo)
+    family: str               # dense | moe | hybrid | vlm | audio | ssm | dlrm
     num_layers: int
     d_model: int
     num_heads: int
@@ -51,8 +95,15 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
-    moe: Optional[Any] = None         # MoEConfig arrives with the zoo
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vlm: Optional[VLMConfig] = None
     dlrm: Optional[DLRMConfig] = None
+    # the reference's lowering strategy (its scan over layers and remat
+    # policy); the port reads neither
+    scan_layers: bool = True
+    remat: str = "full"               # none | dots | full
     notes: str = ""
 
     @property
@@ -63,5 +114,27 @@ class ModelConfig:
     def padded_heads(self) -> int:
         return self.pad_heads_to or self.num_heads
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the long_500k shape (SSM / hybrid / linear-attn)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # all assigned archs decode (whisper is enc-dec)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ---- analytic parameter counts ----
+    def param_count(self) -> int:
+        from repro_torch.configs import counting
+        return counting.param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.configs import counting
+        return counting.active_param_count(self)

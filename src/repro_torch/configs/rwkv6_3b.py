@@ -1,0 +1,23 @@
+"""rwkv6-3b [ssm] — Finch: attention-free, data-dependent decay.
+[arXiv:2404.05892; hf]
+"""
+from repro_torch.configs.base import ModelConfig, SSMConfig
+
+CONFIG = ModelConfig(
+    name="rwkv6-3b",
+    family="ssm",
+    num_layers=32,
+    d_model=2560,
+    num_heads=40,              # wkv heads = d_model / head_dim
+    num_kv_heads=40,
+    d_ff=8960,
+    vocab_size=65536,
+    head_dim=64,
+    ssm=SSMConfig(d_state=64, head_dim=64, chunk=256),
+)
+
+REDUCED = CONFIG.replace(
+    name="rwkv6-reduced", num_layers=2, d_model=64, num_heads=4,
+    num_kv_heads=4, d_ff=224, vocab_size=256, head_dim=16,
+    ssm=SSMConfig(d_state=16, head_dim=16, chunk=16),
+)

@@ -75,6 +75,11 @@ ATTN_GRID = [  # B, H, Hkv, S, T, D
     (1, 3, 1, 300, 200, 64),          # T % 64 != 0, S > T
     (2, 4, 2, 190, 256, 128),         # D = 128, ragged S
     (1, 6, 2, 129, 129, 64),          # G = 3, a second q tile of one row
+    # the LM zoo's prefill shapes
+    (1, 20, 20, 1500, 1500, 64),      # whisper's encoder (non-causal)
+    (2, 20, 20, 64, 1500, 64),        # whisper's cross-attention, S != T
+    (1, 48, 8, 300, 300, 128),        # qwen2.5-14b: G = 6, padded heads
+    (1, 32, 8, 1088, 1088, 128),      # llava: 576 patches + 512 tokens
 ]
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -6)}
 
@@ -97,6 +102,9 @@ DECODE_GRID = [  # B, H, Hkv, T, D, pos, kv_offset
     (2, 10, 2, 96, 32, 80, 0),        # G = 5: a last pass of 1 head
     (1, 16, 1, 128, 128, 127, 0),     # G * D = 2048, the widest group
     (2, 9, 3, 512, 64, 700, 512),     # a second slice that pos cuts
+    # the LM zoo's decode shapes
+    (2, 20, 20, 1500, 64, 1500, 0),   # whisper's cross cache, pos past T
+    (2, 48, 8, 600, 128, 599, 0),     # qwen2.5-14b: G = 6, padded heads
 ]
 DECODE_TOL = (1e-4, 1e-4, 1e-5)       # o, l, m
 

@@ -16,13 +16,17 @@ CUDA card.
       --models rm1,rm2                   # RM1 + RM2 fleet on one pool
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --full --decode-steps 8            # LM generation
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch whisper-large-v3 --device cpu   # seeded frames, reduced
 
 The PyTorch counterpart of ``repro.launch.serve``: for the DLRM archs
 the single-unit engine and the cluster path, which goes through the
 declarative scenario API (``serving.scenario.run_scenario``) with the
 flags assembled into a ``ScenarioSpec`` by :func:`spec_from_flags`; for
-smollm-135m greedy generation through ``LMServingEngine`` (two prompts
-of 16 seeded tokens, a 128-slot cache).  The other LM archs are not
+the LM archs greedy generation through ``LMServingEngine`` (two prompts
+of 16 seeded tokens, a 128-slot cache, and for llava and whisper the
+reference's seeded fp32 ``images``/``frames`` from the same
+``RandomState``).  The recurrent archs (zamba2-7b, rwkv6-3b) are not
 ported yet, and raise.
 """
 from __future__ import annotations
@@ -191,7 +195,14 @@ def _generate(args, cfg, model, device) -> None:
     engine = LMServingEngine(model, model.init(args.seed, device=device),
                              cache_len=128, device=device)
     toks = rng.randint(0, cfg.vocab_size, (2, 16)).astype(np.int32)
-    out = engine.generate(toks, steps=args.decode_steps)
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = rng.randn(
+            2, cfg.encdec.encoder_seq, cfg.d_model).astype(np.float32)
+    if cfg.family == "vlm":
+        extra["images"] = rng.randn(
+            2, cfg.vlm.num_patches, cfg.d_model).astype(np.float32)
+    out = engine.generate(toks, steps=args.decode_steps, extra=extra)
     print(f"[serve] generated {out.shape[1]} tokens/seq for "
           f"{out.shape[0]} sequences: {out[0].tolist()}")
 

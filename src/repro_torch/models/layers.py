@@ -78,12 +78,22 @@ def mlp_table(d: int, f: int) -> dict:
     }
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the two operands' promoted dtype, as JAX's einsum
+    promotes them (whisper's fp32 frames meet bf16 weights); torch's
+    matmul refuses mixed dtypes."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU, with the silu in fp32."""
-    gate = x @ p["wi_gate"]
-    up = x @ p["wi_up"]
+    """SwiGLU, with the silu in fp32 cast back to x's dtype."""
+    gate = matmul(x, p["wi_gate"])
+    up = matmul(x, p["wi_up"])
     h = F.silu(gate.float()).to(x.dtype) * up
-    return h @ p["wo"]
+    return matmul(h, p["wo"])
 
 
 # ---------------------------------------------------------------- attention
@@ -127,7 +137,7 @@ def head_mask(cfg, dtype: torch.dtype,
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w (d, h, k) -> (..., h, k)."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: Optional[torch.Tensor]):

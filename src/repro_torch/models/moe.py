@@ -1,0 +1,168 @@
+"""Mixture-of-experts FFN, in PyTorch: the no-mesh branch of
+``repro.models.moe``.
+
+DisaggRec mapping: experts are the "memory nodes", large parameter pools
+touched sparsely per token, and the combine is the Fsum pattern (each
+expert's outputs are reduced into the token's row before anything
+leaves the expert).  Routing is capacity-bounded greedy dispatch, as in
+the reference: a (token, j) pair's place in its expert's queue is a
+running count over the token-major pairs, and pairs past the capacity
+are dropped.
+
+Every step runs on the device with no host sync (a decode step runs
+under ``torch.cuda.set_sync_debug_mode("error")``): the capacity is a
+Python int from the shapes, queue places come from an integer cumsum,
+and there is no boolean indexing, ``nonzero`` or ``.item()``.
+
+Differences from the reference, each deliberate:
+
+- The combine.  The reference scatter-adds the kept slots' weighted
+  outputs into the tokens' rows (``.at[tok].add``), visiting slots in
+  ascending order.  On the card an ``index_add_`` adds with atomics in no
+  fixed order, so bf16 sums (and greedy tokens) would change from run to
+  run.  Here each token gathers its k slots, sorted by slot (its experts
+  are distinct, so by expert id), and adds them in that order in x's
+  dtype: the reference's order, and deterministic.  A dropped pair adds
+  an exact zero.
+- Expert parallelism (the reference's ``shard_map`` over the ``model``
+  axis) waits for the mesh (ROADMAP Queue 1 item 8): with no mesh the
+  reference takes the branch ported here.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.params import Spec
+
+
+def moe_table(cfg) -> dict:
+    m = cfg.moe
+    E = m.padded_experts
+    d = cfg.d_model
+    t = {
+        "router": Spec((d, E), ("embed", None), "normal:0.02"),
+        "wi_gate": Spec((E, d, m.d_ff_expert), ("experts", "embed", "expert_ffn")),
+        "wi_up": Spec((E, d, m.d_ff_expert), ("experts", "embed", "expert_ffn")),
+        "wo": Spec((E, m.d_ff_expert, d), ("experts", "expert_ffn", "embed")),
+    }
+    if m.num_shared_experts:
+        t["shared"] = {
+            "wi_gate": Spec((d, m.d_ff_shared), ("embed", "ffn")),
+            "wi_up": Spec((d, m.d_ff_shared), ("embed", "ffn")),
+            "wo": Spec((m.d_ff_shared, d), ("ffn", "embed")),
+            "gate": Spec((d, 1), ("embed", None), "zeros"),
+        }
+    return t
+
+
+def _route(x2d: torch.Tensor, router: torch.Tensor, cfg):
+    """Router logits -> (weights (T, k) in x's dtype, ids (T, k), aux).
+    Scores are fp32; padded experts are masked with -inf before the
+    softmax, then top-k and renormalisation."""
+    m = cfg.moe
+    E, Ep = m.num_experts, m.padded_experts
+    logits = x2d.float() @ router.float()
+    if Ep > E:
+        real = torch.arange(Ep, device=x2d.device) < E
+        logits = logits.masked_fill(~real, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = torch.topk(probs, m.top_k, dim=-1)
+    w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
+    # load-balancing aux loss (Switch-style) over real experts
+    hits = ids[..., None] == torch.arange(Ep, device=x2d.device)
+    density = hits.float().mean(dim=(0, 1))[:E]
+    mean_prob = probs[:, :E].mean(dim=0)
+    aux = E * torch.sum(density * mean_prob)
+    return w.to(x2d.dtype), ids, aux
+
+
+def _expert_compute(xbuf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                    wo: torch.Tensor) -> torch.Tensor:
+    """xbuf: (E, C, d) -> (E, C, d) through SwiGLU experts, the silu in
+    fp32 cast back."""
+    g = torch.bmm(xbuf, wg)
+    u = torch.bmm(xbuf, wu)
+    h = F.silu(g.float()).to(xbuf.dtype) * u
+    return torch.bmm(h, wo)
+
+
+def dispatch(ids: torch.Tensor, Ep: int,
+             capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each (token, j) pair's capacity slot -> (slot (T, k), keep (T, k)).
+    A pair's place in its expert's queue counts the pairs before it in
+    the token-major order ``ids.reshape(T * k)`` that chose the same
+    expert; a pair at or past ``capacity`` is dropped, and its slot is
+    the dump slot ``Ep * capacity``."""
+    T, k = ids.shape
+    fid = ids.reshape(T * k)
+    # (Ep, T * k): the running count runs along the contiguous last axis
+    # (a scan down the outer axis of a (T * k, Ep) one-hot is many times
+    # slower on the card at prefill sizes)
+    onehot = (torch.arange(Ep, device=ids.device)[:, None] == fid).to(
+        torch.int32)
+    pos = (torch.cumsum(onehot, dim=1, dtype=torch.int32)
+           * onehot).sum(0) - 1
+    keep = pos < capacity
+    slot = torch.where(keep, fid * capacity + pos.clamp(0, capacity - 1),
+                       Ep * capacity)
+    return slot.reshape(T, k), keep.reshape(T, k)
+
+
+def _moe_local(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
+               wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor, *,
+               capacity: int, cfg) -> torch.Tensor:
+    """Dispatch the tokens to the experts' capacity buffers, compute, and
+    combine each token's kept slots in ascending slot order."""
+    T, d = x2d.shape
+    Ep = cfg.moe.padded_experts
+    C = capacity
+    slot, keep = dispatch(ids, Ep, C)
+    tok = torch.arange(T, device=x2d.device)[:, None].expand_as(slot)
+    # scatter scalar token ids into slots, then gather rows once: an
+    # empty slot (and the dump slot) holds token T, a zero row
+    tok_of = torch.full((Ep * C + 1,), T, dtype=torch.int64,
+                        device=x2d.device)
+    tok_of.index_put_((slot.reshape(-1),), tok.reshape(-1))
+    xpad = torch.cat([x2d, x2d.new_zeros(1, d)])
+    xbuf = xpad[tok_of[:Ep * C]].reshape(Ep, C, d)
+    out = _expert_compute(xbuf, wg, wu, wo).reshape(Ep * C, d)
+    out = torch.cat([out, out.new_zeros(1, d)])
+    # the combine: a token's slots in ascending order, as the
+    # reference's scatter-add visits them; a dropped pair adds zero
+    slot, order = torch.sort(slot, dim=-1)
+    wk = torch.where(keep, w, torch.zeros_like(w)).gather(-1, order)
+    y = out[slot[:, 0]] * wk[:, :1]
+    for j in range(1, slot.shape[1]):
+        y = y + out[slot[:, j]] * wk[:, j:j + 1]
+    return y
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg, *,
+              capacity_factor: Optional[float] = None):
+    """MoE FFN. x: (B, S, d) (or (B, 1, d) decode). Returns (y, aux).
+
+    The capacity uses the real expert count (the padded experts are
+    never routed to, but keep their slots in the buffer, as in the
+    reference): ``max(8, int(T * top_k / num_experts * capacity_factor))``.
+    """
+    B, S, d = x.shape
+    m = cfg.moe
+    if capacity_factor is None:
+        capacity_factor = m.capacity_factor
+    x2d = x.reshape(B * S, d)
+    w, ids, aux = _route(x2d, p["router"], cfg)
+    cap = max(8, int((B * S * m.top_k / m.num_experts) * capacity_factor))
+    y = _moe_local(x2d, w, ids, p["wi_gate"], p["wi_up"], p["wo"],
+                   capacity=cap, cfg=cfg)
+    if m.num_shared_experts:
+        s = p["shared"]
+        g = x2d @ s["wi_gate"]
+        u = x2d @ s["wi_up"]
+        h = F.silu(g.float()).to(x2d.dtype) * u
+        sh = h @ s["wo"]
+        gate = torch.sigmoid(x2d.float() @ s["gate"].float())
+        y = y + sh * gate.to(y.dtype)
+    return y.reshape(B, S, d), aux

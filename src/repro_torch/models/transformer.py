@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense family, in PyTorch: the counterpart
-of ``repro.models.transformer.DecoderLM`` for generation.
+"""Decoder-only transformer LM (dense / MoE / VLM) in PyTorch: the
+counterpart of ``repro.models.transformer.DecoderLM`` for generation.
 
 Parameters are the reference's pytree: a nested dict whose per-layer
 leaves are stacked on a leading ``(L, ...)`` axis, so
@@ -7,7 +7,9 @@ leaves are stacked on a leading ``(L, ...)`` axis, so
 are.  The reference's ``lax.scan`` over layers is a Python loop over
 that axis here.  Prefill attention runs the flash-attention kernel
 (``layers.flash_attention``), decode attention the flash-decode kernel
-(``layers.decode_attention_unsharded``).
+(``layers.decode_attention_unsharded``).  An MoE config swaps each
+layer's MLP for ``models.moe.moe_apply``; a VLM config prepends its
+image patch embeddings, through the ``mm_proj`` projector, to the text.
 
 Differences from the reference, each deliberate:
 
@@ -22,8 +24,8 @@ Differences from the reference, each deliberate:
   token.
 - Attention partials stay in fp32 (see ``layers``).
 
-``loss``, ``cross_entropy``, MoE and VLM wait for training and the rest
-of the zoo (ROADMAP Queue 1 items 6 and 7).
+``loss``, ``cross_entropy`` and the VLM's text-only loss wait for
+training (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -36,7 +38,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pm
+from repro_torch.models.params import Spec
 
 
 def padded_vocab(v: int) -> int:
@@ -75,22 +79,22 @@ def params_from_reference(tree: Any, device: DeviceLike = None) -> Any:
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense" or cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: only the dense decoder family is ported; "
-                f"MoE and VLM wait for ROADMAP Queue 1 item 6")
         self.cfg = cfg
         self.vp = padded_vocab(cfg.vocab_size)
 
     # ------------------------------------------------------------ params
     def _layer_table(self) -> dict:
         cfg = self.cfg
-        return {
+        t = {
             "ln1": L.norm_table(cfg.d_model),
             "attn": L.attn_table(cfg),
             "ln2": L.norm_table(cfg.d_model),
-            "mlp": L.mlp_table(cfg.d_model, cfg.d_ff),
         }
+        if cfg.moe is not None:
+            t["moe"] = moe_mod.moe_table(cfg)
+        else:
+            t["mlp"] = L.mlp_table(cfg.d_model, cfg.d_ff)
+        return t
 
     def _top_table(self) -> dict:
         cfg = self.cfg
@@ -100,6 +104,14 @@ class DecoderLM:
         }
         if not cfg.tie_embeddings:
             t["head"] = L.head_table(self.vp, cfg.d_model)
+        if cfg.family == "vlm":
+            d = cfg.d_model
+            t["mm_proj"] = {
+                "w1": Spec((d, d), ("embed", None)),
+                "b1": Spec((d,), (None,), "zeros"),
+                "w2": Spec((d, d), (None, "embed")),
+                "b2": Spec((d,), ("embed",), "zeros"),
+            }
         return t
 
     def init(self, seed: int = 0, device: DeviceLike = None) -> Dict:
@@ -144,29 +156,42 @@ class DecoderLM:
         out = o.flatten(-2) @ lp["wo"].flatten(0, 1)
         return out, kv
 
+    def _ffn(self, lp, hn):
+        """The layer's MLP, or its MoE FFN -> (out, aux loss)."""
+        if self.cfg.moe is not None:
+            return moe_mod.moe_apply(lp["moe"], hn, self.cfg)
+        return L.mlp_apply(lp["mlp"], hn), 0.0
+
     def _layer(self, lp, x, pos):
         cfg = self.cfg
         h, kv = self._attention(
             lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), pos)
         x = x + h
-        hn = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], hn)
-        return x, kv
+        h2, aux = self._ffn(lp, L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        return x + h2, kv, aux
 
     def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
+        cfg = self.cfg
         x = L.embed_lookup(params["embed"], batch["tokens"])
+        if cfg.family == "vlm":
+            mp = params["mm_proj"]
+            img = batch["images"].to(x.dtype)
+            img = torch.tanh(img @ mp["w1"] + mp["b1"]) @ mp["w2"] + mp["b2"]
+            x = torch.cat([img, x], dim=1)
         pos = torch.arange(x.shape[1], device=x.device)
         return x, pos
 
-    def forward(self, params, batch) -> torch.Tensor:
-        """Full-sequence hidden states after the final norm (the
-        reference's ``forward`` without its MoE aux loss)."""
+    def forward(self, params, batch):
+        """Full-sequence hidden states after the final norm, and the MoE
+        aux loss summed over layers (0.0 without MoE)."""
         cfg = self.cfg
         x, pos = self._embed_inputs(params, batch)
+        total = 0.0
         for i in range(cfg.num_layers):
-            x, _ = self._layer(self._layer_params(params, i), x, pos)
-        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            x, _, aux = self._layer(self._layer_params(params, i), x, pos)
+            total = total + aux
+        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), total
 
     def _logits(self, params, x):
         if self.cfg.tie_embeddings:
@@ -185,7 +210,8 @@ class DecoderLM:
         x, pos = self._embed_inputs(params, batch)
         ks, vs = [], []
         for i in range(cfg.num_layers):
-            x, (k, v) = self._layer(self._layer_params(params, i), x, pos)
+            x, (k, v), _ = self._layer(self._layer_params(params, i), x,
+                                       pos)
             ks.append(k.to(dt))
             vs.append(v.to(dt))
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -223,8 +249,8 @@ class DecoderLM:
             h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
             h, _, _ = self._decode_attention(lp["attn"], h, pos, ks[i], vs[i])
             x = x + h
-            hn = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            x = x + L.mlp_apply(lp["mlp"], hn)
+            h2, _ = self._ffn(lp, L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+            x = x + h2
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x)
         return logits, {"k": ks, "v": vs, "pos": pos}

@@ -5,12 +5,13 @@ The counterpart of ``repro.serving.engine``: the request and result
 records; ``DLRMServingEngine``, which packs requests into fixed-size
 batches (-1 padded), splits an oversized request across batches, and
 scores each batch in one step; and ``LMServingEngine``, greedy
-prefill + decode generation for the dense decoder LM.
+prefill + decode generation for the LM archs (decoder LMs and
+whisper).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -112,12 +113,19 @@ class LMServingEngine:
         self.params = params
         self.cache_len = cache_len
 
-    def generate(self, tokens: np.ndarray, steps: int = 16) -> np.ndarray:
+    def generate(self, tokens: np.ndarray, steps: int = 16,
+                 extra: Optional[Dict[str, Any]] = None) -> np.ndarray:
         """Greedy generation: ``argmax`` over the last logits after the
         prefill and after each of ``steps`` decode calls -> (B, steps)
-        int32 tokens.  Each step reads back only its sampled token."""
+        int32 tokens.  Each step reads back only its sampled token.
+        ``extra`` holds the prefill's other inputs (a VLM's ``images``,
+        whisper's ``frames``), numpy arrays or tensors, which go to the
+        device in their own dtype."""
         batch = {"tokens": torch.from_numpy(
             np.asarray(tokens, np.int32)).to(self.device)}
+        if extra:
+            batch.update({k: torch.as_tensor(v, device=self.device)
+                          for k, v in extra.items()})
         logits, cache = self.model.prefill(self.params, batch,
                                            cache_len=self.cache_len)
         out = []

@@ -20,7 +20,9 @@ the card is held against the same cluster on the CPU: equal stats,
 scores within rtol=1e-5, atol=1e-6; the RM1 + RM2 fleet on the card
 against itself with the plain pooling: scores within 1e-5, and against
 the same fleet on the CPU: an equal report; the LM on the
-card against the LM on the CPU: fp32 logits within 1e-4, equal tokens.
+card against the LM on the CPU: fp32 logits within 1e-4, equal tokens,
+for smollm and for the zoo's reduced MoE, VLM and whisper models; an
+MoE decode step is sync-free and bitwise repeatable in bf16.
 """
 import ctypes
 import dataclasses
@@ -31,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import rm1, smollm_135m
+from repro_torch.configs import get_reduced, rm1, smollm_135m
 from repro_torch.core.sharding import disagg_embedding_lookup
 from repro_torch.data.queries import dlrm_request_stream
 from repro_torch.kernels import build, cases, common
@@ -39,6 +41,7 @@ from repro_torch.kernels import embedding_bag as teb
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops
+from repro_torch.models import registry
 from repro_torch.models.dlrm import DLRMModel
 from repro_torch.models.params import tree_map
 from repro_torch.models.transformer import DecoderLM
@@ -496,3 +499,74 @@ def test_decode_step_makes_no_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert int(cache["pos"]) == 25
+
+
+def _zoo_launches(cfg, steps: int):
+    """(attention launches a prefill, decode launches over ``steps``)."""
+    if cfg.family == "audio":                 # encoder, self, cross
+        return (cfg.encdec.num_encoder_layers + 2 * cfg.num_layers,
+                2 * cfg.num_layers * steps)
+    return cfg.num_layers, cfg.num_layers * steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
+                                  "llava-next-mistral-7b",
+                                  "whisper-large-v3"])
+def test_zoo_arch_on_card_matches_cpu(cuda, arch):
+    """The reduced MoE, VLM and whisper models in fp32: prefill logits on
+    the card within 1e-4 of the CPU's (the kernels' plain versions), the
+    same greedy tokens, and every attention through the kernels."""
+    cfg = get_reduced(arch).replace(dtype="float32", param_dtype="float32")
+    model = registry.build(cfg)
+    gen = torch.Generator().manual_seed(3)       # gates and norms act too
+    params = tree_map(lambda t: t + 0.1 * torch.randn(t.shape, generator=gen),
+                      model.init(0, device="cpu"))
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, cfg.vocab_size, (2, 40))
+    extra = {}
+    if cfg.family == "audio":
+        extra["frames"] = torch.from_numpy(rng.randn(
+            2, cfg.encdec.encoder_seq, cfg.d_model).astype(np.float32))
+    if cfg.family == "vlm":
+        extra["images"] = torch.from_numpy(rng.randn(
+            2, cfg.vlm.num_patches, cfg.d_model).astype(np.float32))
+    batch = dict(extra, tokens=torch.from_numpy(toks))
+    cpu_logits, _ = model.prefill(params, batch)
+    want = LMServingEngine(model, params, cache_len=96,
+                           device="cpu").generate(toks, steps=6, extra=extra)
+    dev_params = tree_map(lambda t: t.to(cuda), params)
+    logits, _ = model.prefill(dev_params,
+                              {k: v.to(cuda) for k, v in batch.items()})
+    torch.testing.assert_close(logits.cpu(), cpu_logits, atol=1e-4,
+                               rtol=1e-4)
+    ops.reset_launches()
+    got = LMServingEngine(model, dev_params, cache_len=96).generate(
+        toks, steps=6, extra=extra)
+    attn, decode = _zoo_launches(cfg, 6)
+    assert ops.LAUNCHES["flash_attention"] == attn
+    assert ops.LAUNCHES["flash_decode_partial"] == decode
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_moe_decode_step_sync_free_and_repeatable(cuda):
+    """An MoE decode step (routing, capacity dispatch, the ordered
+    combine) never waits for the card, and two steps from copies of one
+    cache give bitwise equal logits in bf16 (no atomics in the
+    combine)."""
+    model = registry.build(get_reduced("qwen2-moe-a2.7b"))
+    params = model.init(0, device=cuda)
+    toks = torch.randint(0, 256, (4, 24), device=cuda, dtype=torch.int32)
+    logits, cache = model.prefill(params, {"tokens": toks}, cache_len=32)
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    copies = [{k: v.clone() for k, v in cache.items()} for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [model.decode_step(params, c, {"tokens": tok})[0]
+                for c in copies]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert outs[0].dtype == torch.bfloat16
+    assert torch.equal(outs[0], outs[1])

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import rm1, smollm_135m
+from repro_torch.configs import rm1, smollm_135m, whisper_large_v3
 from repro_torch.data.queries import dlrm_request_stream
 from repro_torch.launch import serve
+from repro_torch.models import registry
 from repro_torch.models.dlrm import DLRMModel
 from repro_torch.models.transformer import DecoderLM, params_from_reference
 from repro_torch.serving.cluster import ClusterEngine
@@ -48,7 +49,8 @@ def test_port_imports_load_no_jax_module():
     code = ("import sys\n"
             "import repro_torch.launch.serve, repro_torch.serving.cluster,"
             " repro_torch.serving.scenario, repro_torch.models.transformer,"
-            " repro_torch.models.registry, repro_torch.core.sharding,"
+            " repro_torch.models.registry, repro_torch.models.moe,"
+            " repro_torch.models.whisper, repro_torch.core.sharding,"
             " repro_torch.core.allocator, repro_torch.core.tco\n"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -95,8 +97,10 @@ def test_explicit_cpu_runs(no_cuda):
 def test_lm_entry_points_without_device_raise(no_cuda):
     model = DecoderLM(smollm_135m.REDUCED)
     params = model.init(0, device="cpu")
+    whisper = registry.build(whisper_large_v3.REDUCED)
     calls = [
         lambda: model.init(0),
+        lambda: whisper.init(0),
         lambda: LMServingEngine(model, params),
         lambda: params_from_reference({"embed": np.zeros((2, 2))}),
         lambda: serve.main(["--arch", "smollm-135m"]),

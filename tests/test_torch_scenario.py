@@ -114,7 +114,7 @@ def test_cli_cluster_and_single_unit(capsys):
         assert any(w in " ".join(got) for w in
                    ("resizes=", "SLA feedback", "model rm2"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve.main(["--arch", "qwen3-4b", "--device", "cpu"])
+        serve.main(["--arch", "zamba2-7b", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("name", sorted(tscenario.PRESETS))
