@@ -20,13 +20,15 @@ with a non-zero exit and no result line):
    schedule equal to ``cases.nmp_schedule``; the attention
    kernels against theirs at the shapes and tolerances of
    ``repro_torch.kernels.cases`` (shared with the card tests): flash
-   attention causal and not, G in {1, 3}, D in {32, 64, 128}, ragged S
-   and T, and smollm-135m's full-width prefill shape (fp32 within 2e-5,
+   attention causal and not, G in {1, 3}, D in {32, 64, 112, 128},
+   ragged S and T, smollm-135m's and zamba2-7b's full-width prefill
+   shapes (fp32 within 2e-5,
    bf16 within two bf16 steps of each element), flash decode at the
    split-KV kernel's edges (pos at 0, mid-cache, at the last row and
    past T, kv_offset > 0 and a slice wholly after pos, one split and the
-   most splits, G from 1 to 16, D 16 to 128, smollm-135m's last decode
-   launch; 1e-4 on o and l, 1e-5 on m);
+   most splits, G from 1 to 16, D 16 to 128 and 112 (row groups with
+   spare lanes), smollm-135m's and zamba2-7b's last decode launches;
+   1e-4 on o and l, 1e-5 on m);
 4. serve: RM1 V0 at its published widths, only ``rows_per_table`` cut
    (3,417,969 -> 40,000, so the embedding bank fits one card), through
    ``run_scenario`` on the CLI's cluster (2 CNs, 4 MNs as
@@ -134,7 +136,30 @@ with a non-zero exit and no result line):
    at full width (llama3-8b, qwen2-moe, llava, whisper with 2 + 2 layers)
    generates the same greedy tokens through the kernels as through
    their plain versions, prefill logits within 1e-4.  The kernels' JSON
-   rows gain each zoo arch's launches (``zoo_launches``).
+   rows gain each zoo arch's launches (``zoo_launches``);
+13. recurrent: zamba2-7b (81 Mamba2 layers, d 3584, a shared attention
+   block of 32 heads of 112 after each of 13 groups of 6, 6.75 B
+   parameters) and rwkv6-3b (32 layers, d 2560, attention-free, 3.09 B)
+   at their published widths, nothing cut, bf16 random weights from a
+   seeded ``torch.Generator``, each built, served and freed before the
+   next, through ``LMServingEngine.generate``: batch 4, a 512-token
+   prompt in a 1024-slot cache, 16 steps.  The counters are zeroed just
+   before and read just after: zamba2 13 flash-attention launches, all
+   on the scalar kernel (head dim 112 is no wgmma width), and 13 x 16
+   flash-decode launches; rwkv6 none of any kernel.  zamba2's kernels
+   are held against their plain versions at the first prefill launch
+   (and fp32 copies of its inputs) and the first and last decode
+   launches, and timed there beside their bounds and SDPA; a decode
+   step of each model runs under sync debug mode 'error', twice from
+   copies of one cache, with bitwise-equal logits; each prints prefill
+   ms, decode ms per step, tokens/s, peak memory and launches, and a
+   trace of its prefill and two decode steps (rwkv6's prefill, some
+   65,000 launches, traced on the device alone).  A 7-layer fp32 copy
+   of zamba2 at full width (a group of 6 with its shared block, a tail
+   of 1) generates the same tokens through the kernels as through their
+   plain versions, prefill logits within 1e-4.  The kernels' rows gain
+   both archs' launches and zamba2's head-dim-112 times
+   (``head_dim_112``).
 
 All timing lives here, never in ``src/`` (the repo's linter bans host
 clocks there).  The line before the last is ``{"kernels": [...]}``; the
@@ -189,14 +214,20 @@ ZOO = [  # arch, num_layers cut to (None: its published depth)
     ("phi3.5-moe-42b-a6.6b", 8),       # 83.7 GB at 32 layers: not one card
     ("llava-next-mistral-7b", None), ("whisper-large-v3", None)]
 ZOO_BATCH, ZOO_STEPS = 4, 16
-#: family -> (prompt tokens, cache slots): text archs 512 tokens in a
-#: 1024-slot cache; llava 512 behind its 576 patches; whisper 64 tokens
-#: behind its 1500 frames
+#: family -> (prompt tokens, cache slots): text archs (the recurrent
+#: ones too) 512 tokens in a 1024-slot cache; llava 512 behind its 576
+#: patches; whisper 64 tokens behind its 1500 frames
 ZOO_SHAPES = {"dense": (512, 1024), "moe": (512, 1024), "vlm": (512, 2048),
-              "audio": (64, 256)}
+              "audio": (64, 256), "hybrid": (512, 1024), "ssm": (512, 1024)}
 #: the full-width fp32 copies, 2 layers (2 + 2 for whisper): one per family
 ZOO_FP32 = ["llama3-8b", "qwen2-moe-a2.7b", "llava-next-mistral-7b",
             "whisper-large-v3"]
+#: the recurrent families at their published depth, served as the zoo
+#: is: zamba2-7b (81 Mamba2 layers, a shared attention block of head dim
+#: 112 after each of 13 groups of 6) and rwkv6-3b (attention-free)
+RECURRENT = ["zamba2-7b", "rwkv6-3b"]
+#: zamba2's fp32 copy: one group of 6 with its shared block, a tail of 1
+RECURRENT_FP32_LAYERS = 7
 
 
 def log(msg: str) -> None:
@@ -939,6 +970,13 @@ def time_attention(q, k, v, kw, launches, card):
         row["wgmma_serialized"] = info and info["wgmma_serialized"]
         assert info is None or (info["spill_bytes"] == 0
                                 and not info["wgmma_serialized"]), info
+    else:
+        tname = "13__nv_bfloat16" if q.dtype == torch.bfloat16 else "f"
+        info = ptxas_info("flash_attention",
+                          f"flash_fwd_kernelI{tname}Li{D}E")
+        row["registers"] = info and info.get("registers")
+        row["spill_bytes"] = info and info.get("spill_bytes")
+        assert info is None or info["spill_bytes"] == 0, info
     log("[timing] " + json.dumps(dict(
         row, shape={"B": B, "H": H, "Hkv": Hkv, "S": S, "T": T, "D": D,
                     "causal": causal, "dtype": str(q.dtype)},
@@ -1354,15 +1392,19 @@ def rm2_dense_trace(member, dev, card, batch: int, steps: int = 5) -> None:
 
 def lm_trace(model, params, prompt, prefill_s, step_s, card,
              steps: int = 8, cache_len: int = LM_CACHE, extra=None,
-             what: str = "lm") -> None:
+             what: str = "lm", prefill_host: bool = True) -> None:
     """The main path's prefill, then ``steps`` decode steps, once more
     under ``torch.profiler``: device busy time and idle share against
-    the untraced times, and the top kernels of each."""
+    the untraced times, and the top kernels of each.  Without
+    ``prefill_host`` the prefill's trace holds the device alone (rwkv6's
+    token loop makes some 65,000 launches a prefill, whose host events
+    would take ``key_averages`` most of a minute)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     dev = params["embed"].device
     batch = dict(extra or {}, tokens=torch.from_numpy(prompt).to(dev))
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(
+            activities=acts if prefill_host else acts[1:]) as prof:
         t0 = time.perf_counter()
         logits, cache = model.prefill(params, batch, cache_len=cache_len)
         torch.cuda.synchronize()
@@ -1516,17 +1558,25 @@ def zoo_launches(cfg, steps: int):
     if cfg.family == "audio":         # encoder, decoder self and cross
         return (cfg.encdec.num_encoder_layers + 2 * cfg.num_layers,
                 2 * cfg.num_layers * steps)
+    if cfg.family == "hybrid":        # zamba2: the shared block per group
+        groups = cfg.num_layers // cfg.ssm.attn_every
+        return groups, groups * steps
+    if cfg.family == "ssm":           # rwkv6: attention-free
+        return 0, 0
     return cfg.num_layers, cfg.num_layers * steps
 
 
-def zoo_model(arch, layers, dev, card):
+def zoo_model(arch, layers, dev, card, tag: str = "zoo",
+              time_rows: bool = False):
     """One arch at its published widths through ``LMServingEngine``;
-    returns its launches."""
+    returns its launches and, with ``time_rows``, the attention kernels'
+    rows (``time_attention``, ``time_decode``) at its first prefill and
+    last decode launch."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import registry
-    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.params import tree_leaves, tree_map
     from repro_torch.serving.engine import LMServingEngine
 
     cfg = configs.get_config(arch)
@@ -1561,7 +1611,10 @@ def zoo_model(arch, layers, dev, card):
     decode_s = total_s - probe.prefill_s
     attn_n, decode_n = zoo_launches(cfg, ZOO_STEPS)
     assert launches["flash_attention"] == attn_n, launches
-    assert variants == {"wgmma": attn_n, "scalar": 0}, variants
+    # every launch on the kernel its head dim takes (zamba2's 112: scalar)
+    kind = fa.variant(torch.bfloat16, cfg.resolved_head_dim)
+    assert variants == {k: attn_n if k == kind else 0 for k in variants}, \
+        variants
     assert launches["flash_decode_partial"] == decode_n, launches
     assert sum(launches.values()) == attn_n + decode_n, launches
     assert tokens.shape == (ZOO_BATCH, ZOO_STEPS)
@@ -1589,17 +1642,26 @@ def zoo_model(arch, layers, dev, card):
                         f"{tuple(q.shape)}: err {err:.3g}, device "
                         f"{ms:.5f} ms (SDPA {lib:.5f}; bound {b:.5f}, "
                         f"{by})")
+    rows = {}
+    if time_rows and attn_n:
+        rows = {"flash_attention": time_attention(
+                    *probe.attn[(True, True)], launches["flash_attention"],
+                    card),
+                "flash_decode_partial": time_decode(
+                    *probe.decode_last[cache_len],
+                    launches["flash_decode_partial"], card)}
     del probe
 
-    moe_line = ""
-    if cfg.moe is not None:
-        # one decode step under sync debug mode, twice from copies of one
-        # cache: no host sync and bitwise-equal logits
+    state_line = ""
+    if cfg.moe is not None or cfg.ssm is not None:
+        # a decode step of routing or recurrent state under sync debug
+        # mode, twice from copies of one cache: no host sync and
+        # bitwise-equal logits
         logits, cache = model.prefill(
             params, {"tokens": torch.from_numpy(prompt[:, :64]).to(dev)},
             cache_len=128)
         tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
-        copies = [{k: v.clone() for k, v in cache.items()} for _ in range(2)]
+        copies = [tree_map(torch.clone, cache) for _ in range(2)]
         del cache
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -1609,13 +1671,15 @@ def zoo_model(arch, layers, dev, card):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert torch.equal(outs[0], outs[1])
+        assert bool(torch.isfinite(outs[0]).all())
         del copies, outs, logits, tok
-        moe_line = (f"; MoE pairs dropped at prefill {dropped} of "
-                    f"{pairs} (capacity factor "
-                    f"{cfg.moe.capacity_factor}); a decode step ran under "
-                    f"sync debug mode 'error', twice from one cache: "
-                    f"logits bitwise equal")
-    log(f"[zoo] {arch} ({cfg.family}) at its published widths "
+        state_line = ("; a decode step ran under sync debug mode 'error', "
+                      "twice from one cache: logits bitwise equal")
+    if cfg.moe is not None:
+        state_line = (f"; MoE pairs dropped at prefill {dropped} of "
+                      f"{pairs} (capacity factor "
+                      f"{cfg.moe.capacity_factor}){state_line}")
+    log(f"[{tag}] {arch} ({cfg.family}) at its published widths "
         f"(d {cfg.d_model}, {cfg.num_layers} layers, {cfg.num_heads} heads"
         f" padded to {cfg.padded_heads} over {cfg.num_kv_heads} kv heads, "
         f"head_dim {cfg.resolved_head_dim}, vocab {cfg.vocab_size}"
@@ -1625,30 +1689,33 @@ def zoo_model(arch, layers, dev, card):
         f"{decode_s / ZOO_STEPS * 1e3:.3f} ms per step; "
         f"{ZOO_BATCH * ZOO_STEPS / decode_s:.1f} generated tokens/s; peak "
         f"device memory {peak_gb:.3f} GB; launches {launches}, attention "
-        f"by kernel {variants}{moe_line}; set-up {setup_s:.1f} s; {card}")
+        f"by kernel {variants}{state_line}; set-up {setup_s:.1f} s; {card}")
     for line in held:
-        log(f"[zoo] {arch} {line}")
+        log(f"[{tag}] {arch} {line}")
     lm_trace(model, params, prompt, prefill_s, decode_s / ZOO_STEPS, card,
-             steps=2, cache_len=cache_len, extra=extra, what=arch)
+             steps=2, cache_len=cache_len, extra=extra, what=arch,
+             prefill_host=cfg.family != "ssm")
     del engine, params, model, prompt, extra
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: launches[k] for k in ("flash_attention",
-                                     "flash_decode_partial")}
+    return ({k: launches[k] for k in ("flash_attention",
+                                      "flash_decode_partial")}, rows)
 
 
-def zoo_fp32_copy(arch, dev, card) -> None:
-    """A 2-layer fp32 copy of ``arch`` at its published widths (2 + 2
-    layers for whisper; the scalar attention kernel): the same greedy
-    tokens through the kernels as through their plain versions, prefill
-    logits within 1e-4 (the repo's fp32 parity tolerance)."""
+def zoo_fp32_copy(arch, dev, card, layers: int = 2,
+                  tag: str = "zoo") -> None:
+    """A ``layers``-layer fp32 copy of ``arch`` at its published widths
+    (2 + 2 layers for whisper; the scalar attention kernel): the same
+    greedy tokens through the kernels as through their plain versions,
+    prefill logits within 1e-4 (the repo's fp32 parity tolerance)."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import registry
     from repro_torch.serving.engine import LMServingEngine
 
-    cfg = configs.get_config(arch).replace(num_layers=2, dtype="float32",
+    cfg = configs.get_config(arch).replace(num_layers=layers,
+                                           dtype="float32",
                                            param_dtype="float32")
     if cfg.encdec is not None:
         cfg = cfg.replace(encdec=dataclasses.replace(
@@ -1677,7 +1744,7 @@ def zoo_fp32_copy(arch, dev, card) -> None:
     err = float((logits_k - logits_p).abs().max())
     torch.testing.assert_close(logits_k, logits_p, atol=1e-4, rtol=1e-4)
     assert np.array_equal(tok_k, tok_p), (tok_k, tok_p)
-    log(f"[zoo] {arch} fp32 copy, {cfg.num_layers} layers at full width, "
+    log(f"[{tag}] {arch} fp32 copy, {cfg.num_layers} layers at full width, "
         f"prompt (2, 96) behind {prefix or 'no'} patches"
         f"{f', {cfg.encdec.encoder_seq} frames' if cfg.encdec else ''}, "
         f"8 steps: "
@@ -1696,7 +1763,7 @@ def zoo_phase(dev, card, rows) -> None:
     t0 = time.perf_counter()
     log(f"[zoo] device memory in use at the start "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
-    launches = {arch: zoo_model(arch, layers, dev, card)
+    launches = {arch: zoo_model(arch, layers, dev, card)[0]
                 for arch, layers in ZOO}
     for arch in ZOO_FP32:
         zoo_fp32_copy(arch, dev, card)
@@ -1705,6 +1772,33 @@ def zoo_phase(dev, card, rows) -> None:
             row["zoo_launches"] = {arch: n[row["name"]]
                                    for arch, n in launches.items()}
     log(f"[zoo] phase took {time.perf_counter() - t0:.1f} s; {card}")
+
+
+def recurrent_phase(dev, card, rows) -> None:
+    """zamba2-7b and rwkv6-3b at full width, then zamba2's fp32 copy;
+    adds their launches to the attention kernels' rows, and zamba2's
+    head-dim-112 numbers beside them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[recurrent] device memory in use at the start "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    launches, d112 = {}, {}
+    for arch in RECURRENT:
+        launches[arch], held = zoo_model(arch, None, dev, card,
+                                         tag="recurrent", time_rows=True)
+        d112.update(held)
+    zoo_fp32_copy("zamba2-7b", dev, card, layers=RECURRENT_FP32_LAYERS,
+                  tag="recurrent")
+    keep = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by", "max_abs_err", "launches")
+    for row in rows:
+        name = row["name"]
+        if name in ("flash_attention", "flash_decode_partial"):
+            row["zoo_launches"].update(
+                {arch: n[name] for arch, n in launches.items()})
+            row["head_dim_112"] = {k: d112[name][k] for k in keep}
+    log(f"[recurrent] phase took {time.perf_counter() - t0:.1f} s; {card}")
 
 
 def main() -> int:
@@ -1851,6 +1945,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- zoo
     zoo_phase(dev, card, rows)
+
+    # ---------------------------------------------------------- recurrent
+    recurrent_phase(dev, card, rows)
 
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -80,6 +80,10 @@ ATTN_GRID = [  # B, H, Hkv, S, T, D
     (2, 20, 20, 64, 1500, 64),        # whisper's cross-attention, S != T
     (1, 48, 8, 300, 300, 128),        # qwen2.5-14b: G = 6, padded heads
     (1, 32, 8, 1088, 1088, 128),      # llava: 576 patches + 512 tokens
+    # head dim 112 (zamba2-7b's shared block): the scalar kernel in bf16
+    (4, 32, 32, 512, 512, 112),       # zamba2-7b's full-width prefill
+    (2, 3, 3, 77, 77, 112),           # G = 1, ragged S = T
+    (1, 4, 4, 130, 200, 112),         # G = 1, ragged S < T
 ]
 ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -6)}
 
@@ -105,6 +109,12 @@ DECODE_GRID = [  # B, H, Hkv, T, D, pos, kv_offset
     # the LM zoo's decode shapes
     (2, 20, 20, 1500, 64, 1500, 0),   # whisper's cross cache, pos past T
     (2, 48, 8, 600, 128, 599, 0),     # qwen2.5-14b: G = 6, padded heads
+    # head dim 112 (zamba2-7b's shared block): 14 of 16 lanes a row carry
+    # data in bf16, 28 of 32 in fp32
+    (4, 32, 32, 1024, 112, 527, 0),   # zamba2-7b's last decode launch
+    (2, 4, 2, 200, 112, 0, 0),        # G = 2, pos 0
+    (2, 4, 2, 300, 112, 150, 0),      # G = 2, pos mid-cache
+    (2, 3, 3, 96, 112, 500, 0),       # G = 1, pos past T
 ]
 DECODE_TOL = (1e-4, 1e-4, 1e-5)       # o, l, m
 

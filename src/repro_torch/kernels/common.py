@@ -14,8 +14,9 @@ from repro_torch.kernels import build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the score of a masked key, as in the Pallas kernels
 NEG_INF = -1e30
-#: head dims the attention kernels are compiled for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the attention kernels are compiled for (112: zamba2-7b's
+#: shared attention block, d 3584 = 32 x 112)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def bind(source: str, entries: Dict[str, Sequence],

@@ -81,7 +81,9 @@
 //     through o's strides; rows past S are not written.
 // * fa_forward, the scalar kernel (namespace below): fp32 at any D, which
 //   the fp32 copy of a model and its 2e-5 tolerance need, and bf16 with D
-//   in {16, 32}, which wgmma's 64-row tiles and 128-byte rows do not fit.
+//   in {16, 32, 112}, which wgmma's 64-row tiles and 128-byte (64-column)
+//   swizzle atoms do not fit (112 is not a multiple of 64: zamba2's
+//   shared attention block runs here).
 //   One CTA of 256 threads per (q tile of 64 rows, head, batch) stages Q,
 //   K and V in shared memory as fp32, computes the 64 x 64 score tile with
 //   scalar FMAs (each thread a 4 x 4 block, read as float4 along D),
@@ -342,6 +344,9 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, o, qs, ks, vs, os, B, H, Hkv, S, Tk,
                            causal, scale, stream);
+    case 112:   // zamba2's shared attention block; about 106 KB of smem
+      return launch<T, 112>(q, k, v, o, qs, ks, vs, os, B, H, Hkv, S, Tk,
+                            causal, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, qs, ks, vs, os, B, H, Hkv, S, Tk,
                             causal, scale, stream);
@@ -976,8 +981,8 @@ extern "C" {
 
 // The scalar kernel.  q, o: (B, H, S, D); k, v: (B, Hkv, T, D); fp32
 // (dtype 0) or bf16 (dtype 1), each with the given element strides of its
-// first three axes and a unit stride along D, on `device`.  D is 16, 32, 64
-// or 128 and H a multiple of Hkv.  Returns the launch's cudaError_t (0 on
+// first three axes and a unit stride along D, on `device`.  D is 16, 32,
+// 64, 112 or 128 and H a multiple of Hkv.  Returns the launch's cudaError_t (0 on
 // success).
 int fa_forward(const void* q, const void* k, const void* v, void* o,
                int dtype, int B, int H, int Hkv, int S, int T, int D,

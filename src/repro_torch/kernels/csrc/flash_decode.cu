@@ -34,12 +34,16 @@
 // the first find the CTA's rows in L1/L2).
 //
 // Inside a CTA each thread reads 16 bytes of a row (8 bf16 or 4 fp32
-// values); D * sizeof(T) / 16 neighbouring lanes cover a row, so a warp
-// reads 32 / that many rows per load.  A thread issues the loads of 4
-// rows of K and of V before it uses the first, scores its piece against
-// the G queries held in registers, reduces across the lanes of the row
-// with shuffles, and keeps an online softmax (m, l and its slice of o)
-// in registers.  No shared memory on the way and no barrier until the
+// values); D * sizeof(T) / 16 neighbouring lanes cover a row, in a lane
+// group rounded up to a power of two, so a warp reads 32 / (group size)
+// rows per load.  At D = 112 a row is 14 lanes in bf16 and 28 in fp32: the
+// groups are 16 and 32 lanes, the spare lanes load nothing and add zero,
+// and the xor trees over a group add only lanes of one row.  At D = 16,
+// 32, 64 and 128 the group is the row's lanes and the code is unchanged.
+// A thread starts the loads of 4 rows of K and of V before it uses the
+// first, scores its piece against the G queries held in registers,
+// reduces across the lanes of the row with shuffles, and keeps an online
+// softmax (m, l and its slice of o) in registers.  No shared memory on the way and no barrier until the
 // end, where the row groups of a warp merge by shuffles and the 4 warps
 // through shared memory, in a fixed order.
 //
@@ -122,6 +126,11 @@ __device__ __forceinline__ void merge_into(float& m, float& l, float* acc,
   m = mx;
 }
 
+// The least power of two >= n, for n >= 1
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
 // One CTA: rows [r0, r1) of split blockIdx.x of kv head blockIdx.y of
 // batch row blockIdx.z, heads in passes of GC.  Writes (o, l, m) of the
 // split to po/pl/pm at [split][b][h] (the outputs when splits == 1).
@@ -134,7 +143,9 @@ __global__ void __launch_bounds__(kThreads)
                     float* __restrict__ pm, int Hkv, int G, int Tk,
                     int kv_offset, float scale) {
   constexpr int kVec = Vec<T>::kN;
-  constexpr int kLanesPerRow = D / kVec;            // 2 .. 32
+  constexpr int kDataLanes = D / kVec;              // lanes a row fills
+  static_assert(D % kVec == 0 && kDataLanes <= 32, "a row fits a warp");
+  constexpr int kLanesPerRow = pow2_at_least(kDataLanes);   // 2 .. 32
   constexpr int kRowsPerWarp = 32 / kLanesPerRow;   // rows per warp load
   constexpr int kStep = kWarps * kRowsPerWarp;      // rows per CTA load
   __shared__ float sM[kWarps][GC], sL[kWarps][GC], sO[kWarps][GC][D];
@@ -145,6 +156,9 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid % 32, warp = tid / 32;
   const int rg = lane / kLanesPerRow;               // row in the warp load
   const int d0 = (lane % kLanesPerRow) * kVec;
+  // false only on the spare lanes of a row group (D = 112); they load
+  // nothing, score 0 and keep acc at 0
+  const bool data = kDataLanes == kLanesPerRow || d0 < D;
   const int split = blockIdx.x, splits = gridDim.x;
   const int hk = blockIdx.y, b = blockIdx.z;
   const int B = gridDim.z, H = Hkv * G;
@@ -165,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
     float qr[GC][kVec];               // heads past gn score 0, unused
 #pragma unroll
     for (int g = 0; g < GC; ++g) {
-      if (g < gn) {
+      if (g < gn && data) {
         Vec<T>::widen(load16(q + (static_cast<int64_t>(b) * H + hk * G + g0
                                   + g) * D + d0), qr[g]);
 #pragma unroll
@@ -192,8 +206,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int u = 0; u < kUnroll; ++u) {   // every load before any use
         const int t = base + u * kStep + warp * kRowsPerWarp + rg;
         in[u] = t < r1;
-        kr[u] = in[u] ? load16(kp + t * row_stride) : make_uint4(0, 0, 0, 0);
-        vr[u] = in[u] ? load16(vp + t * row_stride) : make_uint4(0, 0, 0, 0);
+        const bool ld = in[u] && data;
+        kr[u] = ld ? load16(kp + t * row_stride) : make_uint4(0, 0, 0, 0);
+        vr[u] = ld ? load16(vp + t * row_stride) : make_uint4(0, 0, 0, 0);
       }
       float s[kUnroll][GC];
 #pragma unroll
@@ -258,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     if (g0 > 0) __syncthreads();   // the previous pass has read sM..sO
-    if (rg == 0) {
+    if (rg == 0 && data) {
 #pragma unroll
       for (int g = 0; g < GC; ++g) {
         if (d0 == 0) {
@@ -400,6 +415,7 @@ cudaError_t launch_d(int D, const Args& a, cudaStream_t stream) {
     case 16: return launch_g<T, 16>(a, stream);
     case 32: return launch_g<T, 32>(a, stream);
     case 64: return launch_g<T, 64>(a, stream);
+    case 112: return launch_g<T, 112>(a, stream);   // zamba2's shared block
     case 128: return launch_g<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -416,7 +432,7 @@ extern "C" {
 // q: (B, Hkv * G, D); k_cache, v_cache: (B, T, Hkv, D), fp32 (dtype 0) or
 // bf16 (dtype 1), 16-byte aligned; pos: one int32; o: (B, H, D), l, m:
 // (B, H) fp32; ws: splits * B * H * (D + 2) fp32 when splits > 1 (unused
-// otherwise).  All contiguous on `device`.  D is 16, 32, 64 or 128,
+// otherwise).  All contiguous on `device`.  D is 16, 32, 64, 112 or 128,
 // G * D <= 2048 and 1 <= splits <= 1024.  Returns the first launch error
 // (cudaError_t, 0 on success).
 int fd_partial(const void* q, const void* k_cache, const void* v_cache,

@@ -33,11 +33,12 @@ dim, before the launch:
     pointer must be 16-byte aligned and each stride a multiple of 8
     elements; :func:`flash_attention` raises on any other view and never
     copies.
-``"scalar"`` (``fa_forward``), fp32, and bf16 with D in {16, 32}
+``"scalar"`` (``fa_forward``), fp32, and bf16 with D in {16, 32, 112}
     One CTA per (64-row q tile, head, batch), K/V tiles staged in shared
     memory as fp32, scalar fp32 FMAs: exact to fp32 rounding, which the
     fp32 copy of a model and its 2e-5 tolerance need; wgmma's 64-column
-    swizzled rows do not fit D of 16 or 32.
+    swizzled rows do not fit D of 16 or 32, nor zamba2's 112 (not a
+    multiple of 64), whose bf16 prefill runs here.
 
 The kernels pick their own tiles, so the ``q_block`` and ``kv_block``
 arguments shape only the plain version's blocking.  Each operand may be

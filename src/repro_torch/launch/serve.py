@@ -18,6 +18,8 @@ CUDA card.
       --full --decode-steps 8            # LM generation
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch whisper-large-v3 --device cpu   # seeded frames, reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --full                             # Mamba2 + shared attention
 
 The PyTorch counterpart of ``repro.launch.serve``: for the DLRM archs
 the single-unit engine and the cluster path, which goes through the
@@ -26,8 +28,7 @@ flags assembled into a ``ScenarioSpec`` by :func:`spec_from_flags`; for
 the LM archs greedy generation through ``LMServingEngine`` (two prompts
 of 16 seeded tokens, a 128-slot cache, and for llava and whisper the
 reference's seeded fp32 ``images``/``frames`` from the same
-``RandomState``).  The recurrent archs (zamba2-7b, rwkv6-3b) are not
-ported yet, and raise.
+``RandomState``).
 """
 from __future__ import annotations
 

@@ -96,6 +96,19 @@ def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     return matmul(h, p["wo"])
 
 
+# ---------------------------------------------------------------- blocks
+
+
+def pick_block(S: int, target: int) -> int:
+    """Largest divisor of S that is <= target (block-size helper).  The
+    recurrent models cut their chunks with it as the reference does: the
+    SSD result depends on the chunk size through its summation order."""
+    b = min(S, target)
+    while S % b:
+        b -= 1
+    return b
+
+
 # ---------------------------------------------------------------- attention
 
 
@@ -160,8 +173,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     go in as (B,H,S,D) views of the (B,S,H,D) tensors; the kernel reads
     and writes them in place, so no copy is made on the card.  The
     kernel picks its own tiles, so the reference's ``q_block`` and
-    ``kv_block`` (and ``pick_block``, which sized them) have no
-    counterpart here."""
+    ``kv_block`` have no counterpart here (:func:`pick_block`, which
+    sized them, stays for the recurrent models' chunks)."""
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal)
     return o.transpose(1, 2)

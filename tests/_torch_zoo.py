@@ -1,5 +1,6 @@
 """What the LM zoo's parity tests share (``test_torch_moe.py``,
-``test_torch_zoo.py``, ``test_torch_encdec.py``): both packages' reduced
+``test_torch_zoo.py``, ``test_torch_encdec.py``,
+``test_torch_recurrent.py``): both packages' reduced
 models with the reference's weights carried across, seeded inputs, and
 the fp32 and bf16 comparisons.
 
@@ -13,8 +14,14 @@ Tolerances:
   reference's init gives some zoo models logits up to about 3.  The
   reason is the same: the reference's jnp attention rounds p to bf16
   before the P V product and keeps decode o in bf16, the port keeps
-  them in fp32 as the Pallas kernels do.
+  them in fp32 as the Pallas kernels do.  The recurrent archs hold the
+  port to the reference run op by op (``eager``): compiled, XLA fuses
+  chains of bf16 elementwise ops and rounds once where the source (and
+  the port) rounds after each op, which alone moves zamba2's reduced
+  logits by 13 bf16 steps at their magnitude.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,20 +113,27 @@ def assert_bf16_close(got: torch.Tensor, want, what: str) -> None:
 
 
 def check_bf16_teacher_forced(jm, jp, tm, tp, cache_len: int = 32,
-                              steps: int = 4) -> None:
+                              steps: int = 4, eager: bool = False) -> None:
     """Prefill and ``steps`` decode steps on the reference's greedy
-    tokens: logits within ten bf16 steps at their magnitude."""
+    tokens: logits within ten bf16 steps at their magnitude.  With
+    ``eager`` the reference's prefill and decode steps run op by op
+    (``jax.disable_jit``); its greedy tokens come from its compiled
+    engine either way."""
     toks, extra = inputs(jm.cfg)
     jb, tb = batches(toks, extra)
     ref = JaxEngine(jm, jp, cache_len=cache_len).generate(
         toks, steps=steps, extra=extra)
-    jl, jcache = jm.prefill(jp, jb, cache_len=cache_len)
+    mode = jax.disable_jit if eager else contextlib.nullcontext
+    with mode():
+        jl, jcache = jm.prefill(jp, jb, cache_len=cache_len)
     tl, tcache = tm.prefill(tp, tb, cache_len=cache_len)
     assert tl.dtype == torch.bfloat16
     assert_bf16_close(tl, jl, "prefill")
     for s in range(steps):
         tok = ref[:, s:s + 1]
-        jl, jcache = jm.decode_step(jp, jcache, {"tokens": jnp.asarray(tok)})
+        with mode():
+            jl, jcache = jm.decode_step(jp, jcache,
+                                        {"tokens": jnp.asarray(tok)})
         tl, tcache = tm.decode_step(tp, tcache,
                                     {"tokens": torch.from_numpy(tok)})
         assert_bf16_close(tl, jl, f"decode step {s}")

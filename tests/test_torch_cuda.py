@@ -13,16 +13,18 @@ once, is bitwise equal too.  The attention kernels are held against theirs at th
 shapes and tolerances of ``repro_torch.kernels.cases`` (which
 ``chip_smoke.py`` uses too; its docstring gives the reasons): fp32
 within 2e-5 and bf16 within two bf16 steps of each element for flash
-attention (bf16 at D 64 and 128 on the tensor-core kernel, the rest on
-the scalar one), 1e-4 on o and l and 1e-5 on m for the decode partials,
-whose two launches on the same inputs are bitwise equal.  The cluster on
+attention (bf16 at D 64 and 128 on the tensor-core kernel, the rest,
+zamba2's D = 112 included, on the scalar one), 1e-4 on o and l and 1e-5
+on m for the decode partials, whose two launches on the same inputs are
+bitwise equal.  The cluster on
 the card is held against the same cluster on the CPU: equal stats,
 scores within rtol=1e-5, atol=1e-6; the RM1 + RM2 fleet on the card
 against itself with the plain pooling: scores within 1e-5, and against
 the same fleet on the CPU: an equal report; the LM on the
 card against the LM on the CPU: fp32 logits within 1e-4, equal tokens,
-for smollm and for the zoo's reduced MoE, VLM and whisper models; an
-MoE decode step is sync-free and bitwise repeatable in bf16.
+for smollm and for the zoo's reduced MoE, VLM, whisper and recurrent
+(zamba2, rwkv6) models; an MoE decode step and a recurrent one are
+sync-free and bitwise repeatable in bf16.
 """
 import ctypes
 import dataclasses
@@ -352,8 +354,8 @@ def test_flash_attention_single_tile(cuda, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,kind", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 32, "scalar"), (torch.float32, 64, "scalar"),
-    (torch.float32, 128, "scalar")])
+    (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 112, "scalar"),
+    (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar")])
 def test_flash_attention_variant_launched(cuda, dtype, D, kind):
     """bf16 at D in {64, 128} launches the tensor-core kernel, anything
     else the scalar one: one launch, counted once, on the right kernel."""
@@ -405,10 +407,12 @@ def test_flash_decode_vs_plain(cuda, B, H, Hkv, T, D, pos, off, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,T,D,pos,off", [
     (8, 9, 3, 2048, 64, 1087, 0), (1, 2, 1, 4096, 128, 4095, 0),
-    (96, 9, 3, 128, 64, 100, 0)])
+    (96, 9, 3, 128, 64, 100, 0),
+    (4, 32, 32, 1024, 112, 527, 0)])      # zamba2-7b: spare lanes a row
 def test_flash_decode_deterministic(cuda, B, H, Hkv, T, D, pos, off, dtype):
     """The splits merge in a fixed order: two launches on the same inputs
-    are bitwise equal (many splits, and one)."""
+    are bitwise equal (many splits, and one; head dim 112, whose row
+    groups carry spare lanes)."""
     rng = np.random.RandomState(T + D + pos)
     q = cases.randn(rng, (B, H, D), cuda, dtype)
     kc = cases.randn(rng, (B, T, Hkv, D), cuda, dtype)
@@ -506,17 +510,24 @@ def _zoo_launches(cfg, steps: int):
     if cfg.family == "audio":                 # encoder, self, cross
         return (cfg.encdec.num_encoder_layers + 2 * cfg.num_layers,
                 2 * cfg.num_layers * steps)
+    if cfg.family == "hybrid":                # the shared block per group
+        groups = cfg.num_layers // cfg.ssm.attn_every
+        return groups, groups * steps
+    if cfg.family == "ssm":                   # attention-free
+        return 0, 0
     return cfg.num_layers, cfg.num_layers * steps
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
                                   "llava-next-mistral-7b",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3", "zamba2-7b",
+                                  "rwkv6-3b"])
 def test_zoo_arch_on_card_matches_cpu(cuda, arch):
-    """The reduced MoE, VLM and whisper models in fp32: prefill logits on
-    the card within 1e-4 of the CPU's (the kernels' plain versions), the
-    same greedy tokens, and every attention through the kernels."""
+    """The reduced MoE, VLM, whisper and recurrent models in fp32:
+    prefill logits on the card within 1e-4 of the CPU's (the kernels'
+    plain versions), the same greedy tokens, and every attention through
+    the kernels (none for rwkv6)."""
     cfg = get_reduced(arch).replace(dtype="float32", param_dtype="float32")
     model = registry.build(cfg)
     gen = torch.Generator().manual_seed(3)       # gates and norms act too
@@ -546,6 +557,7 @@ def test_zoo_arch_on_card_matches_cpu(cuda, arch):
     attn, decode = _zoo_launches(cfg, 6)
     assert ops.LAUNCHES["flash_attention"] == attn
     assert ops.LAUNCHES["flash_decode_partial"] == decode
+    assert sum(ops.LAUNCHES.values()) == attn + decode
     np.testing.assert_array_equal(got, want)
 
 
@@ -570,3 +582,28 @@ def test_moe_decode_step_sync_free_and_repeatable(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert outs[0].dtype == torch.bfloat16
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
+def test_recurrent_decode_step_sync_free_and_repeatable(cuda, arch):
+    """A recurrent decode step (zamba2: SSM and conv states and the
+    shared block's KV cache written in place at the device ``pos``;
+    rwkv6: the WKV state) never waits for the card, and two steps from
+    copies of one cache give bitwise equal logits in bf16."""
+    model = registry.build(get_reduced(arch))
+    params = model.init(0, device=cuda)
+    toks = torch.randint(0, 256, (4, 24), device=cuda, dtype=torch.int32)
+    logits, cache = model.prefill(params, {"tokens": toks}, cache_len=32)
+    tok = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)
+    copies = [tree_map(torch.clone, cache) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [model.decode_step(params, c, {"tokens": tok})
+                for c in copies]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert outs[0][0].dtype == torch.bfloat16
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert int(outs[0][1]["pos"]) == 24

@@ -50,7 +50,8 @@ def test_port_imports_load_no_jax_module():
             "import repro_torch.launch.serve, repro_torch.serving.cluster,"
             " repro_torch.serving.scenario, repro_torch.models.transformer,"
             " repro_torch.models.registry, repro_torch.models.moe,"
-            " repro_torch.models.whisper, repro_torch.core.sharding,"
+            " repro_torch.models.whisper, repro_torch.models.mamba2,"
+            " repro_torch.models.rwkv6, repro_torch.core.sharding,"
             " repro_torch.core.allocator, repro_torch.core.tco\n"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -387,6 +387,7 @@ def test_tensor_core_recipe_needs_p_split(B, H, Hkv, S, T, D, causal):
 @pytest.mark.parametrize("dtype,D,kind", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 16, "scalar"),
+    (torch.bfloat16, 112, "scalar"),          # zamba2-7b's shared block
     (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar")])
 def test_attention_variant_by_dtype_and_head_dim(dtype, D, kind):
     assert tfa.variant(dtype, D) == kind

@@ -291,15 +291,30 @@ def test_config_matches_reference(name):
 
 
 def test_unported_families_raise():
-    """Only the recurrent families (zamba2's ``hybrid``, rwkv6's ``ssm``)
-    are still to port: their configs resolve, their models raise and
-    name the next ROADMAP item."""
-    for arch in ("zamba2-7b", "rwkv6-3b"):
-        for cfg in (get_config(arch), get_reduced(arch)):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-                tregistry.build(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        tregistry.build(tcfg.REDUCED.replace(family="ssm"))
+    """The recurrent families, once the port's last unported ones, now
+    build: every ``hybrid`` config gives a ``Zamba2Model`` and every
+    ``ssm`` config an ``RWKV6Model``, full and reduced, as the
+    reference's registry builds them; an unknown arch still raises."""
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+    from repro_torch.models.mamba2 import Zamba2Model
+    from repro_torch.models.rwkv6 import RWKV6Model
+    want = {"hybrid": Zamba2Model, "ssm": RWKV6Model}
+    built = 0
+    for arch in tconfigs.list_archs():
+        for get in ("get_config", "get_reduced"):
+            cfg = getattr(tconfigs, get)(arch)
+            if cfg.family not in want:
+                continue
+            model = tregistry.build(cfg)
+            assert type(model) is want[cfg.family], arch
+            ref = jregistry.build(getattr(jconfigs, get)(arch))
+            assert type(ref).__name__ == want[cfg.family].__name__
+            assert model.param_count() == ref.param_count(), arch
+            built += 1
+    assert built == 4                 # zamba2-7b and rwkv6-3b, each twice
+    assert type(tregistry.build(tcfg.REDUCED.replace(
+        family="ssm"))) is RWKV6Model
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 

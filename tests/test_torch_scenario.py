@@ -113,8 +113,24 @@ def test_cli_cluster_and_single_unit(capsys):
         assert got[1:] == want[1:], flags
         assert any(w in " ".join(got) for w in
                    ("resizes=", "SLA feedback", "model rm2"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve.main(["--arch", "zamba2-7b", "--device", "cpu"])
+    # the recurrent LM archs generate as the reference's CLI does: the
+    # same line for the same two seeded prompts (the tokens differ: the
+    # weights come from torch's generator, not JAX's)
+    for arch in ("zamba2-7b", "rwkv6-3b"):
+        argv = ["--arch", arch, "--decode-steps", "4"]
+        assert serve.main(argv + ["--device", "cpu"]) == 0
+        got = capsys.readouterr().out.splitlines()
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            assert jserve.main(argv) == 0
+        want = buf.getvalue().splitlines()
+        assert len(got) == len(want) == 1, (got, want)
+        head, toks = got[0].split(": ", 1)
+        assert head == want[0].split(": ", 1)[0] == (
+            "[serve] generated 4 tokens/seq for 2 sequences")
+        toks = json.loads(toks)
+        assert len(toks) == len(json.loads(want[0].split(": ", 1)[1])) == 4
+        assert all(0 <= t < 256 for t in toks), toks     # reduced vocab
 
 
 @pytest.mark.parametrize("name", sorted(tscenario.PRESETS))

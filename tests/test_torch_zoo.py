@@ -23,10 +23,9 @@ from repro_torch.launch import serve
 from repro_torch.models import registry as tregistry
 
 DENSE_ARCHS = ["qwen2.5-14b", "qwen3-4b", "llama3-8b"]
-#: the LM archs whose models the port builds (all but the recurrent
-#: two; the DLRMs' parameters are held in ``test_torch_dlrm.py``)
-BUILT_ARCHS = [a for a in jconfigs.ASSIGNED_ARCHS
-               if a not in ("zamba2-7b", "rwkv6-3b")]
+#: the LM archs whose models the port builds (every one; the DLRMs'
+#: parameters are held in ``test_torch_dlrm.py``)
+BUILT_ARCHS = list(jconfigs.ASSIGNED_ARCHS)
 PROPERTIES = ["resolved_head_dim", "padded_heads", "attention_free",
               "sub_quadratic", "has_decoder"]
 
@@ -97,6 +96,18 @@ def test_padded_trees_exceed_their_counts(arch):
     assert model.param_count() == ref.param_count()
     assert model.cfg.param_count() == ref.cfg.param_count()
     assert model.param_count() > model.cfg.param_count()
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
+def test_unpadded_trees_equal_their_counts(arch):
+    """The recurrent archs pad nothing (vocab 32000 and 65536 are
+    multiples of 128; no heads or experts to pad): tree and published
+    count agree, in both packages."""
+    model = tregistry.build(tconfigs.get_config(arch))
+    ref = jregistry.build(jconfigs.get_config(arch))
+    assert model.param_count() == ref.param_count()
+    assert model.param_count() == model.cfg.param_count() == \
+        ref.cfg.param_count()
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
