@@ -159,7 +159,34 @@ with a non-zero exit and no result line):
    of 1) generates the same tokens through the kernels as through their
    plain versions, prefill logits within 1e-4.  The kernels' rows gain
    both archs' launches and zamba2's head-dim-112 times
-   (``head_dim_112``).
+   (``head_dim_112``);
+14. train: (a) smollm-135m at its published widths, nothing cut, bf16,
+   through ``launch.train.build`` -> ``run_train_loop`` (Adam at the
+   CLI's defaults, batch 8 x seq 2048, 40 steps, a checkpoint every 10
+   in a temp directory, a fault hook that raises once at step 25): the
+   fault fires once, the loop resumes from step 20, the latest
+   checkpoint is step 40, every logged loss is finite and the last is
+   below the first, and no kernel launches (the counters are zeroed just
+   before and read just after: the loss takes the blocked jnp attention,
+   the kernels have no backward); step ms (median and spread, leaving
+   out the steps that hold a checkpoint save or the fault), tokens/s,
+   peak memory, and one more step traced; (b) an fp32 copy at full
+   width, batch 2 x seq 256: the loss and every leaf's gradient on the
+   card against the CPU (loss within 1e-5 relative, gradients within
+   rtol 1e-4 and 1e-6 + 1e-4 of each leaf's largest magnitude), and
+   ``make_train_step(microbatches=2)`` against 1 (loss and gradient norm
+   within 1e-5 relative, parameters within 1e-6 after an SGD step at lr
+   1); (c) the F1 guard: flash attention, flash decode and a bag wrapper
+   raise on grad-requiring operands and launch under ``torch.no_grad``;
+   (d) RM1 V0 at its published widths, only ``rows_per_table`` cut
+   (3,417,969 -> 10,000), Adagrad, batch 64, 10 steps: finite losses and
+   gradients, one step lowers a fixed batch's loss; (e) one Adam step of
+   llama3-8b, qwen2-moe-a2.7b, llava-next-mistral-7b, whisper-large-v3
+   (2 layers each, whisper 2 + 2), zamba2-7b (7: a group of 6 with its
+   shared block and a tail of 1) and rwkv6-3b (2) at their published
+   widths, bf16, batch 2 at the zoo's prompt shapes, each freed before
+   the next: the loss finite, every gradient finite and nonzero (the
+   experts' together), the same batch's loss lower after the step.
 
 All timing lives here, never in ``src/`` (the repo's linter bans host
 clocks there).  The line before the last is ``{"kernels": [...]}``; the
@@ -228,6 +255,16 @@ ZOO_FP32 = ["llama3-8b", "qwen2-moe-a2.7b", "llava-next-mistral-7b",
 RECURRENT = ["zamba2-7b", "rwkv6-3b"]
 #: zamba2's fp32 copy: one group of 6 with its shared block, a tail of 1
 RECURRENT_FP32_LAYERS = 7
+#: [train]: smollm-135m's loop (batch x seq, steps, checkpoint period,
+#: the step whose hook raises once), RM1's cut rows, and the zoo's
+#: families at their published widths with their depth cut (zamba2: one
+#: group of 6 with its shared block and a tail of 1)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 40
+TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 10, 25
+TRAIN_RM1_ROWS = 10_000
+TRAIN_FAMILIES = [("llama3-8b", 2), ("qwen2-moe-a2.7b", 2),
+                  ("llava-next-mistral-7b", 2), ("whisper-large-v3", 2),
+                  ("zamba2-7b", 7), ("rwkv6-3b", 2)]
 
 
 def log(msg: str) -> None:
@@ -1801,6 +1838,380 @@ def recurrent_phase(dev, card, rows) -> None:
     log(f"[recurrent] phase took {time.perf_counter() - t0:.1f} s; {card}")
 
 
+def flat_items(tree, path=""):
+    """(path, leaf) over a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_items(v, f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def train_smollm(dev, card) -> None:
+    """smollm-135m at full width through ``launch.train.build`` and
+    ``run_train_loop``: 40 steps, a checkpoint every 10, a fault at step
+    25 that restores step 20; step times, peak memory, one traced step."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import make_train_step, run_train_loop
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_cli.parser().parse_args(
+            ["--arch", "smollm-135m", "--steps", str(TRAIN_STEPS),
+             "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+             "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "1",
+             "--ckpt-dir", tmp])
+        model, opt_cfg, loader, loop_cfg = train_cli.build(args)
+        cfg = model.cfg
+        fired = []
+
+        def fault_hook(step):
+            if step == TRAIN_FAULT_AT and not fired:
+                fired.append(step)
+                raise RuntimeError("injected node failure")
+
+        lines = []
+
+        def log_fn(msg):
+            lines.append((time.perf_counter(), msg))
+
+        params = model.init(0, device=dev)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        params, state, hist = run_train_loop(
+            model, opt_cfg, loader, loop_cfg, params=params,
+            fault_hook=fault_hook, log_fn=log_fn, device=dev)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        latest = ckpt.latest_step(tmp)
+
+    msgs = [m for _, m in lines]
+    assert fired == [TRAIN_FAULT_AT], fired
+    at = msgs.index(next(m for m in msgs if m.startswith("[fault]")))
+    assert msgs[at].startswith(f"[fault] step {TRAIN_FAULT_AT}:"), msgs[at]
+    resumed = TRAIN_FAULT_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+    assert msgs[at + 1].startswith(f"step {resumed:5d}"), msgs[at + 1]
+    assert latest == TRAIN_STEPS, latest
+    assert int(state["step"]) == TRAIN_STEPS
+    losses = [v for _, v in hist]
+    assert all(math.isfinite(v) for v in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert sum(launches.values()) == 0, launches
+    # a step's interval: one "step" line to the next, leaving out those
+    # that hold a checkpoint save (after steps 9, 19, ...) or the fault
+    steps = []
+    for (ta, ma), (tb, mb) in zip(lines, lines[1:]):
+        if not (ma.startswith("step") and mb.startswith("step")):
+            continue
+        a, b = int(ma.split()[1]), int(mb.split()[1])
+        if b == a + 1 and b % TRAIN_CKPT_EVERY:
+            steps.append(((tb - ta) * 1e3, b))
+    first_ms = (lines[0][0] - t0) * 1e3
+    ms = [t for t, _ in steps]
+    step_ms = statistics.median(ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] {cfg.name} at its published widths, nothing cut "
+        f"({cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads} heads "
+        f"over {cfg.num_kv_heads}, vocab {cfg.vocab_size}, tied, "
+        f"{cfg.dtype}, remat {cfg.remat}), {n_params} parameters: "
+        f"launch.train.build -> run_train_loop, Adam lr {opt_cfg.lr}, "
+        f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {TRAIN_STEPS} steps, a "
+        f"checkpoint every {TRAIN_CKPT_EVERY}, a fault at step "
+        f"{TRAIN_FAULT_AT}: resumed from step {resumed}, latest checkpoint "
+        f"{latest}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; step "
+        f"{step_ms:.3f} ms median over {len(ms)} steps (min {min(ms):.3f}, "
+        f"max {max(ms):.3f}; the first, with its warm-up, {first_ms:.1f}); "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s; the loop "
+        f"{total_s:.1f} s; peak device memory {peak_gb:.3f} GB; kernel "
+        f"launches {launches}; {card}")
+    log(f"[train] losses by logged step: "
+        f"{[(s, round(v, 4)) for s, v in hist]}; {card}")
+
+    # one more step, traced
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in next(iter(loader)).items()}
+    step = make_train_step(model, opt_cfg)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    profile_summary(prof, traced_s, step_ms / 1e3, 1, card,
+                    what="smollm-135m train step", unit="step")
+    del params, state, prof, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu(dev, card) -> None:
+    """An fp32 copy of smollm-135m at full width, batch 2 x seq 256: the
+    loss and every leaf's gradient on the card against the CPU, and one
+    train step with 2 microbatches against one with 1."""
+    from repro_torch.configs import smollm_135m
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train.optimizer import OptConfig, init_state
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+
+    cfg = smollm_135m.CONFIG.replace(dtype="float32", param_dtype="float32")
+    model = registry.build(cfg)
+    cpu_params = model.init(0, device="cpu")
+    rng = np.random.RandomState(3)
+    toks = rng.randint(0, cfg.vocab_size, (2, 257)).astype(np.int32)
+    cpu_batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+                 "labels": torch.from_numpy(toks[:, 1:].copy())}
+    batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+    params = tree_map(lambda t: t.to(dev), cpu_params)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = value_and_grad(model, cpu_params, cpu_batch)
+    cpu_s = time.perf_counter() - t0
+    loss, grads = value_and_grad(model, params, batch)
+    worst = 0.0
+    for (path, g), (_, want) in zip(flat_items(grads),
+                                    flat_items(cpu_grads)):
+        g = g.cpu()
+        assert bool(torch.isfinite(g).all()), path
+        tol = 1e-6 + 1e-4 * float(want.abs().max())
+        err = float((g - want).abs().max())
+        torch.testing.assert_close(g, want, rtol=1e-4, atol=tol, msg=path)
+        worst = max(worst, err / tol)
+    rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    assert rel < 1e-5, (float(loss), float(cpu_loss))
+    log(f"[train] {cfg.name} fp32 copy at full width, batch 2 x seq 256: "
+        f"loss {float(loss):.6f} on the card, {float(cpu_loss):.6f} on the "
+        f"CPU (relative {rel:.3g}, tolerance 1e-5); every leaf's gradient "
+        f"within rtol 1e-4, atol 1e-6 + 1e-4 x its largest magnitude (worst "
+        f"{worst:.3g} of that tolerance); the CPU's loss and gradients "
+        f"took {cpu_s:.1f} s; {card}")
+    del cpu_params, cpu_grads, grads
+
+    # SGD at lr 1: the parameters move by exactly the clipped gradient,
+    # where Adam's first step, lr * g / (|g| + eps), would magnify the
+    # last bits of the gradients smaller than eps
+    opt = OptConfig(kind="sgd", lr=1.0)
+    outs = []
+    for mb in (1, 2):
+        p = tree_map(lambda t: t.detach().clone(), params)
+        p, _, metrics = make_train_step(model, opt, microbatches=mb)(
+            p, init_state(opt, p), batch)
+        outs.append((p, metrics))
+    (p1, m1), (p2, m2) = outs
+    for key in ("loss", "grad_norm"):
+        a, b = float(m1[key]), float(m2[key])
+        assert abs(a - b) <= 1e-5 * abs(a), (key, a, b)
+    err = max(float((a - b).detach().abs().max())
+              for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+    assert err <= 1e-6, err
+    log(f"[train] make_train_step(microbatches=2) against microbatches=1 "
+        f"on one batch: loss {float(m2['loss']):.6f} / "
+        f"{float(m1['loss']):.6f}, grad norm {float(m2['grad_norm']):.6f} /"
+        f" {float(m1['grad_norm']):.6f} (within 1e-5 relative), parameters "
+        f"after an SGD step at lr 1 within {err:.3g} (tolerance 1e-6); "
+        f"{card}")
+    del params, outs, p1, p2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_guard(dev) -> None:
+    """F1: each CUDA wrapper refuses grad-requiring operands while grad
+    mode is on, and launches under ``torch.no_grad``."""
+    from repro_torch.kernels import ops
+
+    q = torch.randn(1, 3, 128, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    qd = torch.randn(1, 3, 64, device=dev, dtype=torch.bfloat16,
+                     requires_grad=True)
+    kc = torch.randn(1, 128, 3, 64, device=dev, dtype=torch.bfloat16)
+    pos = torch.tensor(100, dtype=torch.int32, device=dev)
+    tables = torch.randn(4, 64, 128, device=dev, requires_grad=True)
+    idx = torch.randint(0, 64, (8, 4, 5), dtype=torch.int32, device=dev)
+    calls = {
+        "flash_attention": lambda: ops.flash_attention(q, q, q),
+        "flash_decode_partial": lambda: ops.flash_decode_partial(
+            qd, kc, kc, pos),
+        "embedding_bag_fused_flat": lambda: ops.embedding_bag_fused(
+            tables, idx)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            assert f"{name}: the CUDA kernel has no backward" in str(e), e
+        else:
+            raise AssertionError(f"{name} took a grad-requiring operand")
+    ops.reset_launches()
+    with torch.no_grad():
+        for call in calls.values():
+            call()
+    torch.cuda.synchronize()
+    assert all(ops.LAUNCHES[n] == 1 for n in calls), ops.LAUNCHES
+    ops.reset_launches()
+    log(f"[train] F1 guard: {', '.join(calls)} raise on grad-requiring "
+        f"operands in grad mode and launch once each under torch.no_grad")
+
+
+def train_rm1(dev, card) -> None:
+    """RM1 V0 at its published widths, rows cut to TRAIN_RM1_ROWS, Adagrad,
+    batch 64, 10 steps; then one step on a fixed batch lowers its loss and
+    every gradient is finite."""
+    from repro_torch.configs import rm1
+    from repro_torch.data.queries import dlrm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.train_loop import (make_train_step,
+                                              run_train_loop, value_and_grad)
+
+    cfg = rm1.CONFIG.replace(
+        name=f"rm1.v0-rows{TRAIN_RM1_ROWS // 1000}k",
+        dlrm=dataclasses.replace(rm1.CONFIG.dlrm,
+                                 rows_per_table=TRAIN_RM1_ROWS))
+    args = train_cli.parser().parse_args(
+        ["--arch", "rm1", "--opt", "adagrad", "--batch", "64", "--steps",
+         "10", "--log-every", "1"])
+    model, opt_cfg, loader, loop_cfg = train_cli.build(args, cfg=cfg)
+    params = model.init(0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    lines = []
+    t0 = time.perf_counter()
+    params, state, hist = run_train_loop(
+        model, opt_cfg, loader, loop_cfg, params=params, device=dev,
+        log_fn=lambda m: lines.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    ms = [(b - a) * 1e3 for a, b in zip(lines, lines[1:])]
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
+    assert all(math.isfinite(v) for _, v in hist), hist
+
+    rng = np.random.RandomState(123)
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in dlrm_batch(cfg, 64, rng).items()}
+    loss, grads = value_and_grad(model, params, batch)
+    assert all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+    nonzero = sum(int((g != 0).any()) for g in tree_leaves(grads))
+    del grads
+    make_train_step(model, opt_cfg)(params, state, batch)
+    with torch.no_grad():
+        after = float(model.loss(params, batch))
+    assert after < float(loss), (float(loss), after)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[train] {cfg.name}: RM1 V0 at its published widths, cut: "
+        f"rows_per_table {rm1.CONFIG.dlrm.rows_per_table} -> "
+        f"{TRAIN_RM1_ROWS}; Adagrad lr {opt_cfg.lr}, batch 64, 10 steps: "
+        f"loss {hist[0][1]:.4f} -> {hist[-1][1]:.4f}; step "
+        f"{statistics.median(ms):.3f} ms median over {len(ms)} (min "
+        f"{min(ms):.3f}, max {max(ms):.3f}); the loop {total_s:.1f} s; a "
+        f"fixed batch's loss {float(loss):.5f} -> {after:.5f} after one "
+        f"step, every gradient finite ({nonzero} leaves nonzero); peak "
+        f"device memory {peak_gb:.3f} GB; kernel launches 0; {card}")
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_family(arch, layers, dev, card) -> None:
+    """One Adam step of ``arch`` at its published widths, depth cut to
+    ``layers`` (whisper: as many encoder layers too), bf16, batch 2 at
+    the zoo's prompt shape: the loss finite, every leaf outside the
+    experts with a finite, nonzero gradient (the experts' together
+    nonzero), and the same batch's loss lower after the step."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import OptConfig, init_state
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+
+    full = configs.get_config(arch)
+    cfg = full.replace(num_layers=layers)
+    if cfg.encdec is not None:
+        cfg = cfg.replace(encdec=dataclasses.replace(
+            cfg.encdec, num_encoder_layers=layers))
+    model = registry.build(cfg)
+    params = model.init(0, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompt, _ = ZOO_SHAPES[cfg.family]
+    rng = np.random.RandomState(0)
+    toks, extra = zoo_inputs(cfg, rng, 2, prompt + 1, dev, torch.bfloat16)
+    batch = dict(extra, tokens=torch.from_numpy(toks[:, :-1].copy()).to(dev),
+                 labels=torch.from_numpy(toks[:, 1:].copy()).to(dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(model, params, batch)
+    grad_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    assert math.isfinite(float(loss)), float(loss)
+    experts = []
+    for path, g in flat_items(grads):
+        assert bool(torch.isfinite(g).all()), path
+        if "/moe/" in path and "shared" not in path and "router" not in path:
+            experts.append(bool((g != 0).any()))
+        else:
+            assert bool((g != 0).any()), f"{arch}{path}: zero gradient"
+    assert not experts or any(experts)
+    del grads
+    opt = OptConfig()
+    params, _, metrics = make_train_step(model, opt)(
+        params, init_state(opt, params), batch)
+    with torch.no_grad():
+        after = float(model.loss(params, batch))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
+    assert after < float(loss), (arch, float(loss), after)
+    enc = inputs = hit = ""
+    if cfg.encdec is not None:
+        enc = f" (encoder {full.encdec.num_encoder_layers} -> {layers})"
+        inputs = f" and {cfg.encdec.encoder_seq} frames"
+    if cfg.vlm is not None:
+        inputs = f" behind {cfg.vlm.num_patches} patches"
+    if experts:
+        hit = f", {sum(experts)} of {len(experts)} expert leaves nonzero"
+    log(f"[train] {arch} ({cfg.family}) at its published widths, cut: "
+        f"num_layers {full.num_layers} -> {layers}{enc}, {n_params} "
+        f"parameters, bf16, batch 2, {prompt} tokens{inputs}: loss "
+        f"{float(loss):.4f} -> {after:.4f} on the same batch after one "
+        f"Adam step (lr {opt.lr}), every gradient finite{hit}; "
+        f"loss, gradients, step and loss again {step_s:.2f} s; the loss "
+        f"and its gradients peak {grad_gb:.3f} GB above the {held_gb:.3f} "
+        f"GB of weights and batch; peak device memory {peak_gb:.3f} GB; "
+        f"kernel launches 0; {card}")
+    del params, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(dev, card) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[train] device memory in use at the start "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    train_smollm(dev, card)
+    train_card_vs_cpu(dev, card)
+    train_guard(dev)
+    train_rm1(dev, card)
+    for arch, layers in TRAIN_FAMILIES:
+        train_family(arch, layers, dev, card)
+    log(f"[train] phase took {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1948,6 +2359,9 @@ def main() -> int:
 
     # ---------------------------------------------------------- recurrent
     recurrent_phase(dev, card, rows)
+
+    # -------------------------------------------------------------- train
+    train_phase(dev, card)
 
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -1,9 +1,6 @@
 """Config registry: ``--arch <id>`` resolution for every architecture of
 the reference: its LM zoo and the paper's own RM1/RM2 models.
-
-The port builds models for all of them but two: the recurrent families
-(zamba2-7b's ``hybrid``, rwkv6-3b's ``ssm``) have their configs here, and
-``models.registry.build`` raises for them until ROADMAP Queue 1 item 6b.
+``models.registry.build`` builds a model for every one of them.
 """
 from __future__ import annotations
 
@@ -11,7 +8,8 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401
-    DLRMConfig, EncDecConfig, ModelConfig, MoEConfig, SSMConfig, VLMConfig,
+    SHAPES, DLRMConfig, EncDecConfig, ModelConfig, MoEConfig, ShapeConfig,
+    SSMConfig, VLMConfig,
 )
 
 # arch id -> module name

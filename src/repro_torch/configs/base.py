@@ -3,11 +3,13 @@
 The counterpart of ``repro.configs.base``: ``ModelConfig`` with the
 reference's fields and defaults, its sub-configs (``MoEConfig``,
 ``SSMConfig``, ``EncDecConfig``, ``VLMConfig``) and ``DLRMConfig``, the
-paper's model shape.  ``scan_layers`` and ``remat`` are kept so that a
-config compares field for field with the reference's; the port reads
-neither (it loops over layers in Python and does not train yet).
-``ShapeConfig`` and ``MeshConfig`` wait for training and the mesh
-(ROADMAP Queue 1 items 7 and 8).
+paper's model shape, and ``ShapeConfig``, ``SHAPES`` and
+``shape_applicable``, the (arch, shape) cells that ``input_specs`` and
+``cache_specs`` size.  ``scan_layers`` and ``remat`` are kept so that a
+config compares field for field with the reference's; the port loops
+over layers in Python (``scan_layers`` is not read) and checkpoints
+each layer as ``remat`` says when it trains.  ``MeshConfig`` waits for
+the mesh (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -100,8 +102,8 @@ class ModelConfig:
     encdec: Optional[EncDecConfig] = None
     vlm: Optional[VLMConfig] = None
     dlrm: Optional[DLRMConfig] = None
-    # the reference's lowering strategy (its scan over layers and remat
-    # policy); the port reads neither
+    # the reference's lowering strategy: its scan over layers (the port
+    # loops in Python) and the remat policy of the training path
     scan_layers: bool = True
     remat: str = "full"               # none | dots | full
     notes: str = ""
@@ -138,3 +140,32 @@ class ModelConfig:
     def active_param_count(self) -> int:
         from repro_torch.configs import counting
         return counting.active_param_count(self)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def shape_applicable(model: ModelConfig,
+                     shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs, and why not if skipped."""
+    if shape.name == "long_500k" and not model.sub_quadratic:
+        return False, ("SKIP(full-attention): long_500k needs "
+                       "sub-quadratic attention")
+    return True, ""

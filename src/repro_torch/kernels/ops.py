@@ -7,6 +7,15 @@ the kernel's plain PyTorch version; for CUDA tensors it launches the
 hand-written kernel or raises, never falling back.  ``LAUNCHES`` counts
 each kernel's launches (and nothing else), so a run can show that its
 main path went through the kernels.
+
+The CUDA kernels have no backward: each writes its output through
+ctypes, so the result carries no autograd graph.  A CUDA branch
+therefore refuses operands that require grad while grad mode is on
+(:func:`refuse_grad`) rather than drop their gradients without a word.
+Training takes the reference's differentiable path instead
+(``models.layers.flash_attention_blocked``, ``kernels.ref.embedding_bag_ref``),
+as the reference never differentiates its Pallas kernels.  The CPU
+branch, the plain versions, stays differentiable.
 """
 from __future__ import annotations
 
@@ -26,6 +35,20 @@ LAUNCHES: Dict[str, int] = {"embedding_bag": 0,
                             "flash_decode_partial": 0}
 
 
+def refuse_grad(kernel: str, *operands) -> None:
+    """Raise when grad mode is on and an operand requires grad: the CUDA
+    ``kernel`` would return a result with no autograd graph."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in operands):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward and would drop the "
+            f"gradients of its operands; training takes the reference's "
+            f"differentiable path (models.layers.flash_attention_blocked, "
+            f"kernels.ref.embedding_bag_ref), or call the kernel under "
+            f"torch.no_grad()")
+
+
 def reset_launches() -> None:
     """Zero ``LAUNCHES`` and the attention kernels' per-variant counts
     (``flash_attention.VARIANT_LAUNCHES``)."""
@@ -41,6 +64,7 @@ def embedding_bag(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     table's end reads that table's last row."""
     if tables.device.type == "cpu":
         return _eb.embedding_bag_stacked_plain(tables, idx)
+    refuse_grad("embedding_bag", tables)
     out = _eb.embedding_bag_stacked(tables, idx)
     LAUNCHES["embedding_bag"] += 1
     return out
@@ -52,6 +76,7 @@ def embedding_bag_fused_flat(flat_table: torch.Tensor, offsets: torch.Tensor,
     int32, idx (B, T, P) int32 -1 padded -> pooled (B, T, D) fp32."""
     if flat_table.device.type == "cpu":
         return _eb.embedding_bag_flat_plain(flat_table, offsets, idx)
+    refuse_grad("embedding_bag_fused_flat", flat_table)
     out = _eb.embedding_bag_fused_flat(flat_table, offsets, idx)
     LAUNCHES["embedding_bag_fused_flat"] += 1
     return out
@@ -63,6 +88,7 @@ def embedding_bag_nmp_flat(flat_table: torch.Tensor, offsets: torch.Tensor,
     :func:`embedding_bag_fused_flat`, table-major execution."""
     if flat_table.device.type == "cpu":
         return _eb.embedding_bag_flat_plain(flat_table, offsets, idx)
+    refuse_grad("embedding_bag_nmp_flat", flat_table)
     out = _eb.embedding_bag_nmp_flat(flat_table, offsets, idx)
     LAUNCHES["embedding_bag_nmp_flat"] += 1
     return out
@@ -105,6 +131,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          q_block=q_block, kv_block=kv_block)
+    refuse_grad("flash_attention", q, k, v)
     out = _fa.flash_attention(q, k, v, causal=causal)
     LAUNCHES["flash_attention"] += 1
     return out
@@ -122,6 +149,7 @@ def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return _fd.flash_decode_plain(q, k_cache, v_cache, pos,
                                       kv_offset=kv_offset, kv_block=kv_block)
+    refuse_grad("flash_decode_partial", q, k_cache, v_cache)
     out = _fd.flash_decode_partial(q, k_cache, v_cache, pos,
                                    kv_offset=kv_offset)
     LAUNCHES["flash_decode_partial"] += 1

@@ -17,10 +17,11 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import embedding_bag_ref
+from repro_torch.models.params import meta
 
 # (shape, init) leaves; init is "normal:<scale>", "normal" (1/sqrt(fan_in)
 # with fan_in = shape[0]) or "zeros", as in repro.models.params
@@ -146,3 +147,20 @@ class DLRMModel:
     def serve_step(self, params, batch, use_kernel: bool = False):
         return torch.sigmoid(self.forward(params, batch,
                                           use_kernel=use_kernel))
+
+    # -------------------------------------------------------------- specs
+    def input_specs(self, shape_or_batch) -> Dict[str, torch.Tensor]:
+        """The batch of a ``ShapeConfig`` cell, or of a training batch of
+        that many rows, as meta tensors."""
+        r = self.cfg.dlrm
+        if isinstance(shape_or_batch, ShapeConfig):
+            B = shape_or_batch.global_batch
+            kind = shape_or_batch.kind
+        else:
+            B, kind = shape_or_batch, "train"
+        spec = {"dense": meta((B, r.num_dense_features), torch.float32),
+                "indices": meta((B, r.num_tables, r.avg_pooling),
+                                torch.int32)}
+        if kind == "train":
+            spec["labels"] = meta((B,), torch.int32)
+        return spec

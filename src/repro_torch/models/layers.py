@@ -3,12 +3,18 @@
 
 Attention modes
 ---------------
-train/prefill:  :func:`flash_attention` keeps the reference's
+prefill:        :func:`flash_attention` keeps the reference's
                 ``flash_attention_jnp`` interface, ``(B, S, H, D)`` in and
                 out, and runs ``kernels.ops.flash_attention``: the CUDA
                 flash-attention kernel on the card, its plain version on
                 the CPU.  GQA is native in the kernel (q head h reads kv
                 head h // G), so K/V are never repeated per q head.
+train:          :func:`flash_attention_blocked` is the reference's own
+                ``flash_attention_jnp`` (blocked online softmax, one
+                checkpoint per q block), differentiable on every device:
+                the CUDA kernel has no backward, and the reference never
+                differentiates its Pallas kernel either.  The models'
+                ``loss`` selects it explicitly.
 decode:         :func:`decode_attention_local` computes one cache slice's
                 partials (o, l, m) with ``kernels.ops.flash_decode_partial``
                 and :func:`combine_partials` normalises them; with no mesh
@@ -31,6 +37,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.params import Spec
@@ -178,6 +185,87 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal)
     return o.transpose(1, 2)
+
+
+def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool, q_offset=0,
+                            q_block: int = 512, kv_block: int = 1024,
+                            kv_len: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Blocked online-softmax attention, the reference's
+    ``flash_attention_jnp``. q: (B,S,H,D), k/v: (B,T,Hkv,D) -> (B,S,H,D)
+    in q's dtype.
+
+    GQA by head grouping; blocks of ``pick_block(S, q_block)`` queries
+    and ``pick_block(T, kv_block)`` keys; an optional running length
+    (``kv_len``) masks the keys at or past it.  As in the reference: the
+    scores are fp32 (the operands are widened, which gives the products
+    of ``preferred_element_type=float32``), the block positions come
+    from the loop counters, ``m_new`` is clamped at -1e30 so that a fully
+    masked block gives p = 0 and no nan, and p is rounded to V's dtype
+    before P V.  Each q block runs under ``torch.utils.checkpoint``
+    (``jax.checkpoint(q_step)``): the backward recomputes its scores
+    instead of keeping every (q, kv) block's.
+
+    Two differences, neither of which changes the output: the running
+    max takes no gradient (the output does not depend on it, so its
+    exact gradient is zero; the reference's AD computes it and gets
+    rounding noise), and with a static ``q_offset`` a causal kv block
+    that lies wholly after the q block is skipped.  Such a block is never
+    the first (key 0 precedes every query), so m is finite when it would
+    come, and the reference's pass over it gives p = 0 and corr = 1,
+    which leave m, l and acc bitwise as they were.
+    """
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = D ** -0.5
+    qb = pick_block(S, q_block)
+    kb = pick_block(T, kv_block)
+    nq, nk = S // qb, T // kb
+
+    qg = q.reshape(B, nq, qb, Hkv, G, D).permute(1, 0, 3, 4, 2, 5)
+    kg = k.reshape(B, nk, kb, Hkv, D).permute(1, 0, 3, 2, 4)
+    vg = v.reshape(B, nk, kb, Hkv, D).permute(1, 0, 3, 2, 4)
+    ar_q = torch.arange(qb, device=q.device)
+    ar_k = torch.arange(kb, device=q.device)
+
+    def q_step(qblk: torch.Tensor, iq: int) -> torch.Tensor:
+        # qblk: (B,Hkv,G,qb,D)
+        q_pos = q_offset + iq * qb + ar_q
+        qf = qblk.float()
+        m = torch.full((B, Hkv, G, qb), float("-inf"), device=q.device)
+        l = torch.zeros((B, Hkv, G, qb), device=q.device)
+        acc = torch.zeros((B, Hkv, G, qb, D), device=q.device)
+        for jk in range(nk):
+            if (causal and jk and isinstance(q_offset, int)
+                    and jk * kb > q_offset + (iq + 1) * qb - 1):
+                break                                    # all masked
+            kblk, vblk = kg[jk], vg[jk]                  # (B,Hkv,kb,D)
+            kpos = jk * kb + ar_k
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kblk.float()) * scale
+            penalty = torch.zeros((qb, kb), device=q.device)
+            if causal:
+                penalty = penalty + torch.where(
+                    q_pos[:, None] >= kpos[None, :], 0.0, -1e30)
+            if kv_len is not None:
+                penalty = penalty + torch.where(
+                    kpos[None, :] < kv_len, 0.0, -1e30)
+            s = s + penalty
+            m_new = torch.maximum(m, s.detach().amax(-1)).clamp(min=-1e30)
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p.to(vblk.dtype), vblk)
+            m = m_new
+        out = acc / l.clamp(min=1e-37)[..., None]
+        return out.to(q.dtype)
+
+    outs = [checkpoint(q_step, qg[iq], iq, use_reentrant=False)
+            for iq in range(nq)]
+    # (nq, B, Hkv, G, qb, D) -> (B, S, H, D)
+    return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, D)
 
 
 # ------------------------------------------------------------- decode

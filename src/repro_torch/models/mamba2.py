@@ -1,5 +1,5 @@
 """Mamba2 (SSD) block and the Zamba2 hybrid stack, in PyTorch: the
-counterpart of ``repro.models.mamba2`` for generation.
+counterpart of ``repro.models.mamba2``, for generation and training.
 
 Zamba2 structure: groups of ``attn_every`` Mamba2 layers, one *shared*
 attention+MLP block applied after each group (its weights reused by all
@@ -37,8 +37,12 @@ Differences from the reference, each deliberate:
   cache before the step keeps a copy.  A step makes no host sync: no
   ``.item()``, no boolean indexing, no branch on a device value.
 
-``loss``, ``input_specs``, ``cache_specs``, ``cache_logical`` and
-``init_cache`` wait for training (ROADMAP Queue 1 item 7).
+``loss`` (mean CE, unchunked as in the reference) runs the shared
+block's attention through the differentiable
+``layers.flash_attention_blocked`` and checkpoints as the reference's
+scans do (``cfg.remat``): each Mamba2 layer, and each group (its layers
+and the shared block) around them.  ``cache_logical`` waits for the
+mesh (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import params as pm
@@ -274,10 +278,11 @@ class Zamba2Model:
         return n
 
     # forward ----------------------------------------------------------
-    def _attn_block(self, ap: dict, x: torch.Tensor, pos: torch.Tensor):
+    def _attn_block(self, ap: dict, x: torch.Tensor, pos: torch.Tensor,
+                    train: bool = False):
         cfg = self.cfg
         h, kv = self._lm._attention(
-            ap["attn"], L.rmsnorm(x, ap["ln1"], cfg.norm_eps), pos)
+            ap["attn"], L.rmsnorm(x, ap["ln1"], cfg.norm_eps), pos, train)
         x = x + h
         x = x + L.mlp_apply(ap["mlp"], L.rmsnorm(x, ap["ln2"], cfg.norm_eps))
         return x, kv
@@ -285,11 +290,11 @@ class Zamba2Model:
     def _layers(self, params: Dict):
         """(group index or None for the tail, layer index in it, the
         layer's parameters) in the order the stack runs them."""
-        for i in range(self.n_groups):
-            for j in range(self.group):
-                yield i, j, pm.tree_map(lambda a: a[i, j], params["groups"])
-        for j in range(self.tail):
-            yield None, j, pm.tree_map(lambda a: a[j], params["tail"])
+        for i, gp in enumerate(pm.unstack(params["groups"], self.n_groups)):
+            for j, lp in enumerate(pm.unstack(gp, self.group)):
+                yield i, j, lp
+        for j, lp in enumerate(pm.unstack(params["tail"], self.tail)):
+            yield None, j, lp
 
     def _stack(self, params: Dict, x: torch.Tensor,
                cache: Optional[Dict] = None):
@@ -311,11 +316,36 @@ class Zamba2Model:
                     kvs.append(kv)
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), kvs
 
-    def forward(self, params: Dict, batch: Dict):
+    def forward(self, params: Dict, batch: Dict, train: bool = False):
         """Full-sequence hidden states after the final norm, and 0.0 (no
-        aux loss), as the reference returns."""
+        aux loss), as the reference returns.  ``train`` runs the
+        differentiable attention and checkpoints each layer and each
+        group as ``cfg.remat`` says."""
+        cfg = self.cfg
         x = L.embed_lookup(params["embed"], batch["tokens"])
-        return self._stack(params, x)[0], 0.0
+        if not train:
+            return self._stack(params, x)[0], 0.0
+        pos = torch.arange(x.shape[1], device=x.device)
+        layer = tfm._remat(lambda lp, x: mamba2_apply(lp, x, cfg)[0],
+                           cfg.remat)
+
+        def group(layers, x):
+            for lp in layers:
+                x = layer(lp, x)
+            return self._attn_block(params["shared_attn"], x, pos, True)[0]
+
+        group = tfm._remat(group, cfg.remat)
+        for gp in pm.unstack(params["groups"], self.n_groups):
+            x = group(pm.unstack(gp, self.group), x)
+        for lp in pm.unstack(params["tail"], self.tail):
+            x = layer(lp, x)
+        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), 0.0
+
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        x, _ = self.forward(params, batch, train=True)
+        logits = L.unembed(x, params["head"], tied=False)
+        return tfm.cross_entropy(logits, batch["labels"],
+                                 self.cfg.vocab_size).mean()
 
     # serving ----------------------------------------------------------
     def _state_buffers(self, B: int, device) -> Dict:
@@ -404,3 +434,44 @@ class Zamba2Model:
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = L.unembed(x, params["head"], tied=False)
         return logits, dict(cache, pos=pos)
+
+    # specs -------------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """The batch of a ``shape`` cell as meta tensors."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": pm.meta((B, 1), torch.int32)}
+        spec = {"tokens": pm.meta((B, S), torch.int32)}
+        if shape.kind == "train":
+            spec["labels"] = pm.meta((B, S), torch.int32)
+        return spec
+
+    def cache_specs(self, shape: ShapeConfig) -> Dict:
+        cfg, s = self.cfg, self.cfg.ssm
+        B, T = shape.global_batch, shape.seq_len
+        di = s.expand * cfg.d_model
+        nh = di // s.head_dim
+        kv, D = cfg.num_kv_heads, cfg.resolved_head_dim
+        dt = tfm._dtype(cfg.dtype)
+
+        def ssm(lead):
+            return pm.meta(lead + (B, nh, s.head_dim, s.d_state),
+                           torch.float32)
+
+        def conv(lead):
+            return {"x": pm.meta(lead + (B, s.conv_width - 1, di), dt),
+                    "bc": pm.meta(lead + (B, s.conv_width - 1,
+                                          2 * s.d_state), dt)}
+
+        g, t = (self.n_groups, self.group), (self.tail,)
+        attn = (self.n_groups, B, T, kv, D)
+        return {"attn_k": pm.meta(attn, dt), "attn_v": pm.meta(attn, dt),
+                "group_ssm": ssm(g), "group_conv": conv(g),
+                "tail_ssm": ssm(t), "tail_conv": conv(t),
+                "pos": pm.meta((), torch.int32)}
+
+    def init_cache(self, shape: ShapeConfig,
+                   device: DeviceLike = None) -> Dict:
+        """A zero cache of ``cache_specs(shape)`` on ``device`` (default:
+        the CUDA card)."""
+        return pm.zeros_from(self.cache_specs(shape), resolve_device(device))

@@ -24,6 +24,13 @@ Differences from the reference, each deliberate:
   are distinct, so by expert id), and adds them in that order in x's
   dtype: the reference's order, and deterministic.  A dropped pair adds
   an exact zero.
+- Training differentiates this same path: the weights through top-k,
+  the gathers and the combine (a dropped pair's weight gets a zero
+  gradient, as the reference's dump slot gives it), and the aux loss
+  through the router's probabilities (its expert counts are integers,
+  as the reference's one-hot is constant).  The backward of a gather
+  adds with atomics on the card, so gradients need not be bitwise
+  repeatable there; the forward stays so.
 - Expert parallelism (the reference's ``shard_map`` over the ``model``
   axis) waits for the mesh (ROADMAP Queue 1 item 8): with no mesh the
   reference takes the branch ported here.

@@ -39,11 +39,13 @@ class ShapeDtype(NamedTuple):
     dtype: torch.dtype
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of a nested dict, and to the matching
+    leaves of ``rest`` (trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any):
@@ -90,3 +92,25 @@ def shape_tree(table: Dict, dtype: torch.dtype, stack: int = 0) -> Dict:
     """ShapeDtypes without allocation."""
     return tree_map(lambda s: ShapeDtype(
         ((stack,) + s.shape) if stack else s.shape, dtype), table)
+
+
+def unstack(tree: Dict, n: int) -> list:
+    """The ``n`` per-layer trees of a tree stacked on a leading ``(n,
+    ...)`` axis, each leaf cut by one ``unbind``: the backward then
+    stacks a leaf's layer gradients once, where ``a[i]`` per layer would
+    add a zero tensor of the whole stack into its gradient per layer."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def meta(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    """A tensor's shape and dtype with no storage (``device="meta"``):
+    the counterpart of ``jax.ShapeDtypeStruct`` in the models'
+    ``input_specs`` and ``cache_specs``."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def zeros_from(specs: Any, device: torch.device) -> Any:
+    """Zeros on ``device`` of every meta leaf of ``specs``."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device), specs)

@@ -1,5 +1,6 @@
 """RWKV6 ("Finch"), the attention-free LM with data-dependent decay, in
-PyTorch: the counterpart of ``repro.models.rwkv6`` for generation.
+PyTorch: the counterpart of ``repro.models.rwkv6``, for generation and
+training.
 
 Recurrence (per head, K=V=head_dim):
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
@@ -24,9 +25,14 @@ Python loop.  Differences from the reference, each deliberate:
   ``layers.matmul`` does.
 
 A forward returns new state tensors and leaves the ones it was given as
-they are; a decode step makes no host sync.  ``loss``, ``input_specs``,
-``cache_specs``, ``cache_logical`` and ``init_cache`` wait for training
-(ROADMAP Queue 1 item 7).
+they are; a decode step makes no host sync.
+
+``loss`` (mean CE, unchunked as in the reference) checkpoints each layer
+as ``cfg.remat`` says.  Under autograd each token of ``wkv_scan`` keeps
+a few (B, H, K, K) fp32 tensors, about 2 MB a sequence at rwkv6-3b's
+widths; the per-layer checkpoint keeps one layer's loop at a time, as
+the reference's nested checkpointed scans bound theirs.
+``cache_logical`` waits for the mesh (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import params as pm
@@ -215,21 +221,29 @@ class RWKV6Model:
         return tm_state, tm_prev, torch.zeros_like(tm_prev)
 
     def forward(self, params: Dict, batch: Dict,
-                states: Optional[States] = None):
+                states: Optional[States] = None, train: bool = False):
         """Hidden states after the final norm, and the new (tm_state,
         tm_prev, cm_prev), each stacked over layers; ``states`` (zeros
-        when None) is read, not written."""
+        when None) is read, not written.  ``train`` checkpoints each
+        layer as ``cfg.remat`` says."""
         cfg = self.cfg
         x = L.embed_lookup(params["embed"], batch["tokens"])
         if states is None:
             states = self._zero_states(x.shape[0], x.device)
         new = tuple(torch.empty_like(s) for s in states)
-        for i in range(cfg.num_layers):
-            lp = pm.tree_map(lambda a: a[i], params["layers"])
-            x, *st = self._layer(lp, x, *(s[i] for s in states))
+        layer = tfm._remat(self._layer, cfg.remat if train else "none")
+        for i, lp in enumerate(pm.unstack(params["layers"],
+                                          cfg.num_layers)):
+            x, *st = layer(lp, x, *(s[i] for s in states))
             for buf, s in zip(new, st):
                 buf[i].copy_(s)
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), new
+
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        x, _ = self.forward(params, batch, train=True)
+        logits = L.unembed(x, params["head"], tied=False)
+        return tfm.cross_entropy(logits, batch["labels"],
+                                 self.cfg.vocab_size).mean()
 
     # serving ----------------------------------------------------------
     def prefill(self, params: Dict, batch: Dict,
@@ -252,3 +266,31 @@ class RWKV6Model:
         logits = L.unembed(x, params["head"], tied=False)
         return logits, {"tm_state": st, "tm_prev": tp, "cm_prev": cp,
                         "pos": cache["pos"] + 1}
+
+    # specs --------------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """The batch of a ``shape`` cell as meta tensors."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": pm.meta((B, 1), torch.int32)}
+        spec = {"tokens": pm.meta((B, S), torch.int32)}
+        if shape.kind == "train":
+            spec["labels"] = pm.meta((B, S), torch.int32)
+        return spec
+
+    def cache_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        B = shape.global_batch
+        H, K = cfg.num_heads, cfg.resolved_head_dim
+        prev = pm.meta((cfg.num_layers, B, cfg.d_model),
+                       tfm._dtype(cfg.dtype))
+        return {"tm_state": pm.meta((cfg.num_layers, B, H, K, K),
+                                    torch.float32),
+                "tm_prev": prev, "cm_prev": prev,
+                "pos": pm.meta((), torch.int32)}
+
+    def init_cache(self, shape: ShapeConfig,
+                   device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+        """A zero cache of ``cache_specs(shape)`` on ``device`` (default:
+        the CUDA card)."""
+        return pm.zeros_from(self.cache_specs(shape), resolve_device(device))

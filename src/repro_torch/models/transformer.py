@@ -1,5 +1,6 @@
 """Decoder-only transformer LM (dense / MoE / VLM) in PyTorch: the
-counterpart of ``repro.models.transformer.DecoderLM`` for generation.
+counterpart of ``repro.models.transformer.DecoderLM``, for generation
+and training.
 
 Parameters are the reference's pytree: a nested dict whose per-layer
 leaves are stacked on a leading ``(L, ...)`` axis, so
@@ -24,18 +25,28 @@ Differences from the reference, each deliberate:
   token.
 - Attention partials stay in fp32 (see ``layers``).
 
-``loss``, ``cross_entropy`` and the VLM's text-only loss wait for
-training (ROADMAP Queue 1 item 7).
+Training (``loss``) runs the reference's own differentiable attention,
+``layers.flash_attention_blocked``, chosen by the ``train`` argument that
+``loss`` passes through ``forward`` to ``_attention``: the CUDA kernels
+have no backward (``kernels.ops.refuse_grad``).  Each layer is
+checkpointed as ``cfg.remat`` says (``_remat``), the stacked leaves are
+cut per layer by one ``unbind`` (``params.unstack``), and the CE runs in
+checkpointed chunks of 1024 positions, as in the reference.
+``input_specs`` and ``cache_specs`` give meta tensors, the counterpart
+of ``jax.ShapeDtypeStruct``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -45,6 +56,43 @@ from repro_torch.models.params import Spec
 
 def padded_vocab(v: int) -> int:
     return -(-v // 128) * 128
+
+
+#: the matrix products whose outputs ``remat="dots"`` keeps, as
+#: ``jax.checkpoint_policies.checkpoint_dots`` keeps every dot_general's
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """``fn`` checkpointed as the reference's ``_remat`` does: ``"full"``
+    recomputes everything in the backward, ``"dots"`` keeps the matrix
+    products' outputs and recomputes the rest, ``"none"`` keeps all."""
+    if mode == "none":
+        return fn
+    kw = {}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_real: int) -> torch.Tensor:
+    """Stable CE with padded-vocab masking, in fp32. logits (..., Vp)."""
+    logits = logits.float()
+    Vp = logits.shape[-1]
+    if Vp > vocab_real:
+        logits = torch.where(
+            torch.arange(Vp, device=logits.device) < vocab_real, logits,
+            -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    # the reference reduces a one-hot (not take_along_axis) only so that
+    # a vocab-sharded logits dim partitions without an all-gather; with
+    # no mesh a gather picks the same element, so the same bits, without
+    # a pass over the (..., Vp) logits
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return lse - ll
 
 
 def pad_cache(kv: torch.Tensor, cache_len: Optional[int],
@@ -140,16 +188,19 @@ class DecoderLM:
         n += pm.table_size(self._layer_table()) * self.cfg.num_layers
         return n
 
-    @staticmethod
-    def _layer_params(params: Dict, i: int) -> Dict:
-        return pm.tree_map(lambda a: a[i], params["layers"])
-
     # ----------------------------------------------------------- forward
-    def _attention(self, lp, x, pos):
+    def _attention(self, lp, x, pos, train: bool = False):
+        """-> (out, (k, v)); ``train`` takes the differentiable blocked
+        attention, else the kernel."""
         cfg = self.cfg
         q, k, v = L._project_qkv(lp, x, cfg, pos)
         kv = (k, v)
-        o = L.flash_attention(q, k, v, causal=True)
+        if train:
+            o = L.flash_attention_blocked(
+                q, k, v, causal=True, q_block=min(512, q.shape[1]),
+                kv_block=min(1024, k.shape[1]))
+        else:
+            o = L.flash_attention(q, k, v, causal=True)
         mask = L.head_mask(cfg, o.dtype, o.device)
         if mask is not None:
             o = o * mask[None, None, :, None]
@@ -162,10 +213,10 @@ class DecoderLM:
             return moe_mod.moe_apply(lp["moe"], hn, self.cfg)
         return L.mlp_apply(lp["mlp"], hn), 0.0
 
-    def _layer(self, lp, x, pos):
+    def _layer(self, lp, x, pos, train: bool = False):
         cfg = self.cfg
         h, kv = self._attention(
-            lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), pos)
+            lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), pos, train)
         x = x + h
         h2, aux = self._ffn(lp, L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
         return x + h2, kv, aux
@@ -182,14 +233,22 @@ class DecoderLM:
         pos = torch.arange(x.shape[1], device=x.device)
         return x, pos
 
-    def forward(self, params, batch):
+    def forward(self, params, batch, train: bool = False):
         """Full-sequence hidden states after the final norm, and the MoE
-        aux loss summed over layers (0.0 without MoE)."""
+        aux loss summed over layers (0.0 without MoE).  ``train`` runs
+        the differentiable attention and checkpoints each layer as
+        ``cfg.remat`` says."""
         cfg = self.cfg
         x, pos = self._embed_inputs(params, batch)
+
+        def body(lp, x):
+            y, _, aux = self._layer(lp, x, pos, train)
+            return y, aux
+
+        body = _remat(body, cfg.remat if train else "none")
         total = 0.0
-        for i in range(cfg.num_layers):
-            x, _, aux = self._layer(self._layer_params(params, i), x, pos)
+        for lp in pm.unstack(params["layers"], cfg.num_layers):
+            x, aux = body(lp, x)
             total = total + aux
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), total
 
@@ -197,6 +256,42 @@ class DecoderLM:
         if self.cfg.tie_embeddings:
             return L.unembed(x, params["embed"], tied=True)
         return L.unembed(x, params["head"], tied=False)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token CE (over ``loss_mask`` when the batch has one;
+        a VLM's text positions only), plus the MoE router aux loss."""
+        cfg = self.cfg
+        x, aux = self.forward(params, batch, train=True)
+        labels, mask = batch["labels"], batch.get("loss_mask")
+        if cfg.family == "vlm":  # loss only over text positions
+            x = x[:, -labels.shape[1]:]
+
+        # CE in chunks of positions to bound the fp32 logits, each chunk
+        # checkpointed: its logits are otherwise kept for the backward
+        S = x.shape[1]
+        chunk = min(1024, S)
+        nc = S // chunk if S % chunk == 0 else 1
+        if nc > 1:
+            def ce_chunk(xc, lc):
+                return cross_entropy(self._logits(params, xc), lc,
+                                     cfg.vocab_size)
+            ce = torch.cat([
+                checkpoint(ce_chunk, x[:, c * chunk:(c + 1) * chunk],
+                           labels[:, c * chunk:(c + 1) * chunk],
+                           use_reentrant=False) for c in range(nc)], dim=1)
+        else:
+            ce = cross_entropy(self._logits(params, x), labels,
+                               cfg.vocab_size)
+        if mask is not None:
+            mask = mask.to(torch.float32)
+            ce = ce * mask
+            denom = mask.sum().clamp(min=1.0)
+        else:
+            denom = ce.numel()
+        total = ce.sum() / denom
+        if cfg.moe is not None:
+            total = total + cfg.moe.router_aux_loss * aux
+        return total
 
     # ----------------------------------------------------------- serving
     def prefill(self, params, batch, cache_len: Optional[int] = None):
@@ -209,9 +304,8 @@ class DecoderLM:
         dt = _dtype(cfg.dtype)
         x, pos = self._embed_inputs(params, batch)
         ks, vs = [], []
-        for i in range(cfg.num_layers):
-            x, (k, v), _ = self._layer(self._layer_params(params, i), x,
-                                       pos)
+        for lp in pm.unstack(params["layers"], cfg.num_layers):
+            x, (k, v), _ = self._layer(lp, x, pos)
             ks.append(k.to(dt))
             vs.append(v.to(dt))
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -244,8 +338,8 @@ class DecoderLM:
         x = L.embed_lookup(params["embed"], batch["tokens"])
         pos = cache["pos"] + 1
         ks, vs = cache["k"], cache["v"]
-        for i in range(cfg.num_layers):
-            lp = self._layer_params(params, i)
+        for i, lp in enumerate(pm.unstack(params["layers"],
+                                          cfg.num_layers)):
             h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
             h, _, _ = self._decode_attention(lp["attn"], h, pos, ks[i], vs[i])
             x = x + h
@@ -254,3 +348,33 @@ class DecoderLM:
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = self._logits(params, x)
         return logits, {"k": ks, "v": vs, "pos": pos}
+
+    # ------------------------------------------------------------- specs
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """The batch of a ``shape`` cell as meta tensors."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": pm.meta((B, 1), torch.int32)}
+        n_img = cfg.vlm.num_patches if cfg.family == "vlm" else 0
+        spec = {"tokens": pm.meta((B, S - n_img), torch.int32)}
+        if shape.kind == "train":
+            spec["labels"] = pm.meta((B, S - n_img), torch.int32)
+        if n_img:
+            spec["images"] = pm.meta((B, n_img, cfg.d_model),
+                                     _dtype(cfg.dtype))
+        return spec
+
+    def cache_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        B, T = shape.global_batch, shape.seq_len
+        kv = (cfg.num_layers, B, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+        dt = _dtype(cfg.dtype)
+        return {"k": pm.meta(kv, dt), "v": pm.meta(kv, dt),
+                "pos": pm.meta((), torch.int32)}
+
+    def init_cache(self, shape: ShapeConfig,
+                   device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+        """A zero cache of ``cache_specs(shape)`` on ``device`` (default:
+        the CUDA card)."""
+        return pm.zeros_from(self.cache_specs(shape), resolve_device(device))

@@ -1,5 +1,6 @@
 """Whisper-large-v3 backbone, encoder-decoder, in PyTorch: the
-counterpart of ``repro.models.whisper.WhisperModel`` for generation.
+counterpart of ``repro.models.whisper.WhisperModel``, for generation
+and training.
 
 As in the reference, the conv/mel frontend is a stub (the caller passes
 frame embeddings ``(B, 1500, d_model)``), the decoder uses RoPE in place
@@ -20,6 +21,12 @@ K/V to the promoted dtype for the one-dtype kernel and its output back
 to q's, as ``flash_attention_jnp`` returns q's dtype.  The caches hold
 ``cfg.dtype``.  Decode writes the self-attention cache in place, as
 ``DecoderLM`` does; the cross cache is never written.
+
+``loss`` (mean CE over the decoder's positions, unchunked as in the
+reference) runs all three attentions through the differentiable
+``layers.flash_attention_blocked``, which takes the mixed dtypes as the
+reference's jnp attention does; each encoder and decoder layer is
+checkpointed as ``cfg.remat`` says.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import params as pm
@@ -109,28 +116,32 @@ class WhisperModel:
                 * cfg.encdec.num_encoder_layers
                 + pm.table_size(_dec_layer_table(cfg)) * cfg.num_layers)
 
-    @staticmethod
-    def _layer(params: Dict, stack: str, i: int) -> Dict:
-        return pm.tree_map(lambda a: a[i], params[stack])
-
     # --------------------------------------------------------------- enc
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, frames: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
         cfg = self.cfg
         x = frames + _sinusoid(frames.shape[1], cfg.d_model,
                                frames.device).to(frames.dtype)
-        for i in range(cfg.encdec.num_encoder_layers):
-            lp = self._layer(params, "enc_layers", i)
+
+        def body(lp, x):
             h, _ = self._attn(lp["attn"],
                               L.rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                              causal=False)
+                              causal=False, train=train)
             x = x + h
-            x = x + L.mlp_apply(lp["mlp"],
-                                L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+            return x + L.mlp_apply(lp["mlp"],
+                                   L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+
+        body = tfm._remat(body, cfg.remat if train else "none")
+        for lp in pm.unstack(params["enc_layers"],
+                             cfg.encdec.num_encoder_layers):
+            x = body(lp, x)
         return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
-    def _attn(self, ap, x, causal: bool, kv_src=None, pos=None):
+    def _attn(self, ap, x, causal: bool, kv_src=None, pos=None,
+              train: bool = False):
         """Self or cross attention (kv_src = encoder output for cross)
-        -> (out, (k, v))."""
+        -> (out, (k, v)); ``train`` takes the differentiable blocked
+        attention, else the kernel."""
         cfg = self.cfg
         src = x if kv_src is None else kv_src
         q = L._heads(x, ap["wq"])
@@ -139,36 +150,53 @@ class WhisperModel:
         if pos is not None:
             q = L.rope(q, pos, cfg.rope_theta)
             k = L.rope(k, pos, cfg.rope_theta)
-        dt = torch.promote_types(q.dtype, k.dtype)
-        o = L.flash_attention(q.to(dt), k.to(dt), v.to(dt),
-                              causal=causal).to(q.dtype)
+        if train:
+            o = L.flash_attention_blocked(
+                q, k, v, causal=causal, q_block=min(512, q.shape[1]),
+                kv_block=min(1024, k.shape[1]))
+        else:
+            dt = torch.promote_types(q.dtype, k.dtype)
+            o = L.flash_attention(q.to(dt), k.to(dt), v.to(dt),
+                                  causal=causal).to(q.dtype)
         out = L.matmul(o.flatten(-2), ap["wo"].flatten(0, 1))
         return out, (k, v)
 
     # --------------------------------------------------------------- dec
-    def _dec_layer(self, lp, x, enc, pos):
+    def _dec_layer(self, lp, x, enc, pos, train: bool = False):
         cfg = self.cfg
         h, kv = self._attn(lp["self_attn"],
                            L.rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                           causal=True, pos=pos)
+                           causal=True, pos=pos, train=train)
         x = x + h
         h, cross_kv = self._attn(lp["cross_attn"],
                                  L.rmsnorm(x, lp["ln_x"], cfg.norm_eps),
-                                 causal=False, kv_src=enc)
+                                 causal=False, kv_src=enc, train=train)
         x = x + h
         x = x + L.mlp_apply(lp["mlp"], L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
         return x, kv, cross_kv
 
-    def forward(self, params, batch) -> torch.Tensor:
-        """Full-sequence decoder hidden states after the final norm."""
+    def forward(self, params, batch, train: bool = False) -> torch.Tensor:
+        """Full-sequence decoder hidden states after the final norm.
+        ``train`` runs the differentiable attention and checkpoints each
+        layer as ``cfg.remat`` says."""
         cfg = self.cfg
-        enc = self.encode(params, batch["frames"])
+        enc = self.encode(params, batch["frames"], train)
         x = L.embed_lookup(params["embed"], batch["tokens"])
         pos = torch.arange(x.shape[1], device=x.device)
-        for i in range(cfg.num_layers):
-            x, _, _ = self._dec_layer(self._layer(params, "dec_layers", i),
-                                      x, enc, pos)
+
+        def body(lp, x):
+            return self._dec_layer(lp, x, enc, pos, train)[0]
+
+        body = tfm._remat(body, cfg.remat if train else "none")
+        for lp in pm.unstack(params["dec_layers"], cfg.num_layers):
+            x = body(lp, x)
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        x = self.forward(params, batch, train=True)
+        logits = L.unembed(x, params["embed"], tied=True)
+        return tfm.cross_entropy(logits, batch["labels"],
+                                 self.cfg.vocab_size).mean()
 
     def prefill(self, params, batch, cache_len: Optional[int] = None):
         """Encode the frames, run the decoder over the prompt -> (last
@@ -181,9 +209,8 @@ class WhisperModel:
         S = x.shape[1]
         pos = torch.arange(S, device=x.device)
         ks, vs, cks, cvs = [], [], [], []
-        for i in range(cfg.num_layers):
-            x, (k, v), (ck, cv) = self._dec_layer(
-                self._layer(params, "dec_layers", i), x, enc, pos)
+        for lp in pm.unstack(params["dec_layers"], cfg.num_layers):
+            x, (k, v), (ck, cv) = self._dec_layer(lp, x, enc, pos)
             ks.append(k.to(dt))
             vs.append(v.to(dt))
             cks.append(ck.to(dt))
@@ -212,8 +239,8 @@ class WhisperModel:
         # ``ck.shape[1]``, here filled on the device (no host copy)
         cross_pos = torch.full((), cks.shape[2], dtype=torch.int32,
                                device=x.device)
-        for i in range(cfg.num_layers):
-            lp = self._layer(params, "dec_layers", i)
+        for i, lp in enumerate(pm.unstack(params["dec_layers"],
+                                          cfg.num_layers)):
             h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
             h, _, _ = self._lm._decode_attention(lp["self_attn"], h, pos,
                                                  ks[i], vs[i])
@@ -230,3 +257,35 @@ class WhisperModel:
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = L.unembed(x, params["embed"], tied=True)
         return logits, dict(cache, k=ks, v=vs, pos=pos)
+
+    # ------------------------------------------------------------- specs
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """The batch of a ``shape`` cell as meta tensors."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":
+            return {"tokens": pm.meta((B, 1), torch.int32)}
+        spec = {"frames": pm.meta((B, cfg.encdec.encoder_seq, cfg.d_model),
+                                  tfm._dtype(cfg.dtype)),
+                "tokens": pm.meta((B, S), torch.int32)}
+        if shape.kind == "train":
+            spec["labels"] = pm.meta((B, S), torch.int32)
+        return spec
+
+    def cache_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        B, T = shape.global_batch, shape.seq_len
+        kv, D = cfg.num_kv_heads, cfg.resolved_head_dim
+        E = cfg.encdec.encoder_seq
+        dt = tfm._dtype(cfg.dtype)
+        s = (cfg.num_layers, B, T, kv, D)
+        c = (cfg.num_layers, B, E, kv, D)
+        return {"k": pm.meta(s, dt), "v": pm.meta(s, dt),
+                "cross_k": pm.meta(c, dt), "cross_v": pm.meta(c, dt),
+                "pos": pm.meta((), torch.int32)}
+
+    def init_cache(self, shape: ShapeConfig,
+                   device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+        """A zero cache of ``cache_specs(shape)`` on ``device`` (default:
+        the CUDA card)."""
+        return pm.zeros_from(self.cache_specs(shape), resolve_device(device))

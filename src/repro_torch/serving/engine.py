@@ -113,6 +113,7 @@ class LMServingEngine:
         self.params = params
         self.cache_len = cache_len
 
+    @torch.no_grad()
     def generate(self, tokens: np.ndarray, steps: int = 16,
                  extra: Optional[Dict[str, Any]] = None) -> np.ndarray:
         """Greedy generation: ``argmax`` over the last logits after the
@@ -120,7 +121,9 @@ class LMServingEngine:
         int32 tokens.  Each step reads back only its sampled token.
         ``extra`` holds the prefill's other inputs (a VLM's ``images``,
         whisper's ``frames``), numpy arrays or tensors, which go to the
-        device in their own dtype."""
+        device in their own dtype.  Runs under ``torch.no_grad``, so
+        parameters that a train step marked ``requires_grad`` serve
+        through the kernels too."""
         batch = {"tokens": torch.from_numpy(
             np.asarray(tokens, np.int32)).to(self.device)}
         if extra:

@@ -24,7 +24,11 @@ the same fleet on the CPU: an equal report; the LM on the
 card against the LM on the CPU: fp32 logits within 1e-4, equal tokens,
 for smollm and for the zoo's reduced MoE, VLM, whisper and recurrent
 (zamba2, rwkv6) models; an MoE decode step and a recurrent one are
-sync-free and bitwise repeatable in bf16.
+sync-free and bitwise repeatable in bf16.  Every kernel wrapper refuses
+an operand that requires grad (the kernels have no backward) and
+launches under ``torch.no_grad``; a reduced fp32 train step on the card
+against the CPU: loss and gradient norm within 1e-5 relative,
+parameters within 1e-5 after an SGD step at lr 1, no kernel launch.
 """
 import ctypes
 import dataclasses
@@ -45,7 +49,7 @@ from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops
 from repro_torch.models import registry
 from repro_torch.models.dlrm import DLRMModel
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.serving.cluster import ClusterConfig, ClusterEngine
 from repro_torch.serving.engine import LMServingEngine, Request
@@ -607,3 +611,69 @@ def test_recurrent_decode_step_sync_free_and_repeatable(cuda, arch):
     assert outs[0][0].dtype == torch.bfloat16
     assert torch.equal(outs[0][0], outs[1][0])
     assert int(outs[0][1]["pos"]) == 24
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_grad_requiring_operands(cuda):
+    """The CUDA kernels have no backward: each wrapper raises on an
+    operand that requires grad while grad mode is on (where it would
+    otherwise drop the gradient), and launches under ``torch.no_grad``."""
+    q = torch.randn(1, 2, 64, 64, device=cuda, requires_grad=True)
+    qd = torch.randn(1, 2, 64, device=cuda, requires_grad=True)
+    kc = torch.randn(1, 32, 2, 64, device=cuda)
+    tables = torch.randn(2, 16, 128, device=cuda, requires_grad=True)
+    idx = torch.zeros(4, 2, 3, dtype=torch.int32, device=cuda)
+    pos = torch.tensor(7, dtype=torch.int32, device=cuda)
+    calls = {
+        "flash_attention": lambda: ops.flash_attention(q, q, q),
+        "flash_decode_partial": lambda: ops.flash_decode_partial(
+            qd, kc, kc, pos),
+        "embedding_bag": lambda: ops.embedding_bag(tables, idx),
+        "embedding_bag_fused_flat": lambda: ops.embedding_bag_fused(
+            tables, idx),
+        "embedding_bag_nmp_flat": lambda: ops.embedding_bag_nmp(tables, idx),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
+            call()
+    ops.reset_launches()
+    with torch.no_grad():
+        for call in calls.values():
+            call()
+    torch.cuda.synchronize()
+    assert all(n == 1 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2-moe-a2.7b",
+                                  "zamba2-7b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """A reduced fp32 train step (the loss through the blocked attention,
+    the update in place) on the card against the same step on the CPU:
+    loss and gradient norm within 1e-5 relative, parameters within 1e-5
+    after an SGD step at lr 1 (they move by the clipped gradient itself;
+    Adam's first step would magnify the last bits of gradients below its
+    eps); no kernel launches."""
+    from repro_torch.train.optimizer import OptConfig, init_state
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = get_reduced(arch).replace(dtype="float32", param_dtype="float32")
+    model = registry.build(cfg)
+    cpu_params = model.init(0, device="cpu")
+    dev_params = tree_map(lambda t: t.to(cuda), cpu_params)
+    rng = np.random.RandomState(0)
+    batch = {k: torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 32))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    opt = OptConfig(kind="sgd", lr=1.0)
+    step = make_train_step(model, opt)
+    ops.reset_launches()
+    dev_params, _, dm = step(dev_params, init_state(opt, dev_params),
+                             {k: v.to(cuda) for k, v in batch.items()})
+    cpu_params, _, cm = step(cpu_params, init_state(opt, cpu_params), batch)
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(dm[key]), float(cm[key]), rtol=1e-5)
+    for a, b in zip(tree_leaves(dev_params), tree_leaves(cpu_params)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-5,
+                                   rtol=0)

@@ -52,7 +52,9 @@ def test_port_imports_load_no_jax_module():
             " repro_torch.models.registry, repro_torch.models.moe,"
             " repro_torch.models.whisper, repro_torch.models.mamba2,"
             " repro_torch.models.rwkv6, repro_torch.core.sharding,"
-            " repro_torch.core.allocator, repro_torch.core.tco\n"
+            " repro_torch.core.allocator, repro_torch.core.tco,"
+            " repro_torch.launch.train, repro_torch.train.train_loop,"
+            " repro_torch.train.optimizer, repro_torch.train.checkpoint\n"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -112,3 +114,23 @@ def test_lm_entry_points_without_device_raise(no_cuda):
     eng = LMServingEngine(model, params, cache_len=24, device="cpu")
     out = eng.generate(np.zeros((1, 4), np.int32), steps=2)
     assert out.shape == (1, 2) and out.dtype == np.int32
+
+
+def test_train_entry_points_without_device_raise(no_cuda):
+    from repro_torch.configs import SHAPES
+    from repro_torch.data.queries import ShardedLoader, lm_batch
+    from repro_torch.launch import train
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import TrainLoopConfig, run_train_loop
+
+    model = DecoderLM(smollm_135m.REDUCED)
+    loader = ShardedLoader(lambda rng: lm_batch(256, 2, 8, rng))
+    calls = [
+        lambda: train.main(["--reduced", "--steps", "1"]),
+        lambda: run_train_loop(model, OptConfig(), loader,
+                               TrainLoopConfig(steps=1)),
+        lambda: model.init_cache(SHAPES["decode_32k"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
