@@ -186,7 +186,40 @@ with a non-zero exit and no result line):
    shared block and a tail of 1) and rwkv6-3b (2) at their published
    widths, bf16, batch 2 at the zoo's prompt shapes, each freed before
    the next: the loss finite, every gradient finite and nonzero (the
-   experts' together), the same batch's loss lower after the step.
+   experts' together), the same batch's loss lower after the step;
+15. mesh: serving on a mesh of 4 rank processes on the one card
+   (``torch.multiprocessing`` spawn, a ``file://`` store, gloo: NCCL
+   refuses two ranks on one device; the parent draws each model's
+   weights once and passes them by CUDA IPC, each rank clones only its
+   blocks).  It prints the backend and its routes (DTensors move by
+   c10d all-gathers and slices: DTensor's functional collectives crash
+   on gloo CUDA tensors).  (a) RM1 V0 as in serve (rows cut to 40,000)
+   on (data 2, model 2) with ``make_rules(cfg, mesh, "prefill")``,
+   params placed by ``reshard_tree``, through ``DLRMServingEngine(mesh,
+   rules, use_kernel=True)``: serve's 32 requests, every rank's scores
+   within ``SCORE_ATOL`` of serve's, the fused bag launched on every
+   rank; then ``healthy_mesh({"model": 2}, failed_fraction=0.4)``, the
+   params resharded onto the 2 survivors, the same requests within
+   ``SCORE_ATOL`` of the first mesh's.  (b) smollm-135m (9 heads: FSDP
+   and context parallelism) and qwen2-moe-a2.7b (16 heads, 64 padded
+   experts: head-TP and EP) at their published widths on (1, 4) through
+   ``build_program``'s prefill and decode fns (batch 8, prompt 1024,
+   2048 slots, 16 steps; batch 4, prompt 512, 1024 slots, 16 steps),
+   held against the same weights on one device before the ranks start:
+   bf16 logits of the prefill and of steps teacher-forced on the
+   one-device tokens within ten bf16 steps; 30 (24) decode launches a
+   step on every rank, 3 of 4 at ``kv_offset`` > 0; qwen2-moe's 24
+   attention launches a prefill on every rank, all wgmma over 4 local
+   heads, its route ids and kept pairs equal to one device's at the
+   mesh's capacity (EP rounds it up to a multiple of 8, as the
+   reference does); smollm's prefill launches no attention kernel
+   (context parallelism runs the blocked attention, as the reference
+   does).  (c) smollm-135m in fp32 at full width, 2 layers: the mesh's
+   greedy tokens equal one device's.  Each rank prints its prefill ms,
+   decode ms a step, tokens/s, peak memory and the collectives' share
+   of a decode step's wall (gloo stages through host memory: these are
+   not NVLink's times); the card's memory in use, the phase's time.  A
+   rank that fails fails the phase through its exit code.
 
 All timing lives here, never in ``src/`` (the repo's linter bans host
 clocks there).  The line before the last is ``{"kernels": [...]}``; the
@@ -2212,6 +2245,612 @@ def train_phase(dev, card) -> None:
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s; {card}")
 
 
+# ---------------------------------------------------------------- mesh
+#: rank processes of the [mesh] phase, all on cuda:0, and gloo's timeout
+#: (a rank that fails ends the others' collectives there)
+MESH_WORLD, MESH_TIMEOUT_S = 4, 180
+MESH_RM1_BATCH = 64
+#: arch -> (batch, prompt, cache slots, decode steps) on the (1, 4) mesh
+MESH_LM = {"smollm-135m": (LM_BATCH, LM_PROMPT, LM_CACHE, 16),
+           "qwen2-moe-a2.7b": (ZOO_BATCH, 512, 1024, ZOO_STEPS)}
+#: the fp32 copies at full width: arch -> (layers, batch, prompt, cache
+#: slots, greedy steps)
+MESH_FP32 = {"smollm-135m": (2, 8, 128, 256, 8),
+             "qwen2-moe-a2.7b": (2, 4, 128, 256, 8)}
+
+
+def sync() -> None:
+    """Wait for the card (the [mesh] jobs also run on the CPU, where a
+    rehearsal drives them with reduced configs)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def bf16_tol(ref: torch.Tensor) -> float:
+    """Ten bf16 steps at the logits' magnitude (the zoo's tolerance)."""
+    return 10 * 2 ** -8 * float(ref.abs().max())
+
+
+class MeshProbe:
+    """In a rank (or the parent's one-device run): each flash-attention
+    launch's local heads, each decode launch's ``kv_offset``, the MoE
+    dispatch's route ids and kept pairs at prefill, and the host time
+    inside the mesh collectives (``sharding._reduce`` / ``_gather``,
+    each timed from a synchronised device, so its share excludes the
+    compute queued before it)."""
+
+    def __init__(self, timed: bool = False):
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.kernels import ops
+        from repro_torch.models import moe
+        self.shd, self.ops, self.moe, self.timed = shd, ops, moe, timed
+        self.orig = (ops.flash_attention, ops.flash_decode_partial,
+                     moe.dispatch, shd._reduce, shd._gather)
+        self.heads, self.offsets, self.routes = [], set(), []
+        self.in_prefill, self.coll_s = False, 0.0
+
+    def __enter__(self):
+        probe = self
+        attn, decode, dispatch, reduce_, gather = self.orig
+
+        def flash_attention(q, k, v, **kw):
+            probe.heads.append(q.shape[1])
+            return attn(q, k, v, **kw)
+
+        def flash_decode_partial(q, kc, vc, pos, **kw):
+            probe.offsets.add(kw.get("kv_offset", 0))
+            return decode(q, kc, vc, pos, **kw)
+
+        def recorded_dispatch(ids, Ep, capacity):
+            slot, keep = dispatch(ids, Ep, capacity)
+            if probe.in_prefill:
+                probe.routes.append((ids, keep, capacity))
+            return slot, keep
+
+        def timed(fn):
+            def run(*a, **kw):
+                if not probe.timed:
+                    return fn(*a, **kw)
+                sync()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sync()
+                probe.coll_s += time.perf_counter() - t0
+                return out
+            return run
+
+        self.ops.flash_attention = flash_attention
+        self.ops.flash_decode_partial = flash_decode_partial
+        self.moe.dispatch = recorded_dispatch
+        self.shd._reduce, self.shd._gather = timed(reduce_), timed(gather)
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops.flash_attention, self.ops.flash_decode_partial,
+         self.moe.dispatch, self.shd._reduce, self.shd._gather) = self.orig
+        return False
+
+    def route_arrays(self):
+        return [(ids.cpu().numpy(), keep.cpu().numpy(), cap)
+                for ids, keep, cap in self.routes]
+
+
+def mesh_rank(rank: int, store: str, jobs, q) -> None:
+    """One rank of the [mesh] phase: joins the gloo group on cuda:0, runs
+    each (job, payload) of ``jobs`` in turn and puts (rank, results) on
+    ``q``.  A failure is not caught: the rank exits non-zero, and the
+    others fail at gloo's timeout."""
+    import datetime
+    import faulthandler
+
+    import torch.distributed as dist
+    faulthandler.enable()          # a crash in native code prints where
+    cuda = jobs[0][1]["dev"].type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method="file://" + store, rank=rank,
+        world_size=MESH_WORLD,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        results = []
+        for job, payload in jobs:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            res = MESH_JOBS[job](rank, payload)
+            sync()
+            res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+                if cuda else float("nan")
+            results.append(res)
+            # release the parent's tensors (CUDA IPC counts this rank's
+            # references, and a process that just exits may not drop them)
+            payload.clear()
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        q.put((rank, results))
+    finally:
+        dist.destroy_process_group()
+
+
+def drawn_compact(draw, dev):
+    """The tree ``draw()`` makes on the card, moved to the host and back:
+    drawing the weights (fp32 draws cast to bf16) leaves free blocks
+    inside segments that live weights pin, which ``empty_cache`` cannot
+    return (16.5 GB for qwen2-moe-a2.7b); fresh copies, made once the
+    draw is freed, sit in segments of their own."""
+    from repro_torch.models.params import tree_map
+    host = tree_map(lambda t: t.cpu(), draw())     # the draw is freed here
+    free_card()
+    return tree_map(lambda t: t.to(dev), host)
+
+
+def free_card() -> None:
+    """Free what the parent no longer references, the tensors it shared
+    with the ranks (CUDA IPC) included."""
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+
+
+def run_ranks(jobs):
+    """Spawns the ranks with ``jobs``, a list of (job, payload) (CUDA
+    tensors in a payload pass through CUDA IPC: each rank clones only
+    its own blocks), collects every rank's results and waits for its
+    exit; a rank that dies, or exits non-zero, fails the phase.  Returns
+    (per job, the results by rank; wall s)."""
+    import queue
+    import tempfile
+
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=mesh_rank, args=(
+            r, str(Path(d) / "store"), jobs, q)) for r in range(MESH_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            results = {}
+            deadline = time.monotonic() + 2 * MESH_TIMEOUT_S
+            while len(results) < MESH_WORLD:
+                try:
+                    rank, res = q.get(timeout=5)
+                    results[rank] = res
+                except queue.Empty:        # a poll: no result yet
+                    codes = [p.exitcode for p in procs]
+                    if (any(c not in (None, 0) for c in codes)
+                            or time.monotonic() > deadline):
+                        raise RuntimeError(
+                            f"[mesh] {[j for j, _ in jobs]}: rank exit "
+                            f"codes {codes}")
+            for p in procs:
+                p.join(timeout=60)
+            codes = [p.exitcode for p in procs]
+            assert codes == [0] * MESH_WORLD, codes
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+                p.close()        # drops the process's hold on the payloads
+    per_job = [[results[r][i] for r in range(MESH_WORLD)]
+               for i in range(len(jobs))]
+    return per_job, time.perf_counter() - t0
+
+
+def card_used_gb() -> float:
+    """Device memory in use on the card by every process (GB)."""
+    if not torch.cuda.is_available():
+        return float("nan")
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 1e9
+
+
+def mesh_rm1_rank(rank: int, p) -> dict:
+    """RM1 V0 on the (data 2, model 2) mesh through
+    ``DLRMServingEngine(mesh, rules, use_kernel=True)``, params placed by
+    ``reshard_tree``; then ``healthy_mesh({"model": 2}, 0.4)`` and the
+    same requests on the survivors."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import elastic
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import DLRMServingEngine
+
+    cfg, params, reqs, dev = p["cfg"], p["params"], p["reqs"], p["dev"]
+    model = registry.build(cfg)
+    mesh = make_host_mesh(2, device=dev)
+    rules = registry.make_rules(cfg, mesh, "prefill")
+    placed = elastic.reshard_tree(params, model.param_specs(), mesh, rules)
+    dist.barrier()
+    out = {"coord": mesh.get_coordinate(), "card_gb": card_used_gb(),
+           "block": tuple(placed["embed"].to_local().shape)}
+    eng = DLRMServingEngine(model, placed, batch_size=p["batch"],
+                            use_kernel=True, device=dev, mesh=mesh,
+                            rules=rules)
+    eng.serve(reqs[:2])                                   # warm-up
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.serve(reqs)
+    sync()
+    out["serve_s"] = time.perf_counter() - t0
+    out["launches"] = dict(ops.LAUNCHES)
+    out["scores"] = {r.rid: r.outputs for r in res}
+    del eng, placed, res
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    small = elastic.healthy_mesh({"model": 2}, failed_fraction=0.4,
+                                 device=dev)
+    out["healthy"] = small.mesh.tolist()
+    survivor = elastic.reshard_tree(params, model.param_specs(), small, rules)
+    if survivor is not None:
+        ops.reset_launches()
+        res = DLRMServingEngine(model, survivor, batch_size=p["batch"],
+                                use_kernel=True, device=dev, mesh=small,
+                                rules=rules).serve(reqs)
+        out["healthy_launches"] = dict(ops.LAUNCHES)
+        out["healthy_block"] = tuple(survivor["embed"].to_local().shape)
+        out["healthy_scores"] = {r.rid: r.outputs for r in res}
+    return out
+
+
+def mesh_lm_rank(rank: int, p) -> dict:
+    """An LM on the (1, 4) mesh through ``build_program``'s prefill and
+    decode fns, params placed by ``reshard_tree`` under each mode's
+    rules; decode teacher-forced on ``p["forced"]`` when given (else
+    greedy).  Rank 0 returns the logits and tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_program
+    from repro_torch.models import registry
+
+    cfg, prompt, T, steps = p["cfg"], p["prompt"], p["cache"], p["steps"]
+    forced, dev = p.get("forced"), p["dev"]
+    model = registry.build(cfg)
+    mesh = make_host_mesh(MESH_WORLD, device=dev)
+    dist.barrier()
+    card = [card_used_gb()]
+    B, S = prompt.shape
+    pf, _, prules = build_program(cfg, ShapeConfig("p", S, B, "prefill"),
+                                  mesh, cache_len=T)
+    df, _, drules = build_program(cfg, ShapeConfig("d", T, B, "decode"), mesh)
+    placed = elastic.reshard_tree(p["params"], model.param_specs(), mesh,
+                                  prules)
+    dist.barrier()
+    card.append(card_used_gb())
+    dparams = elastic.reshard_tree(placed, model.param_specs(), mesh, drules)
+    dist.barrier()
+    card.append(card_used_gb())
+    toks = torch.from_numpy(prompt).to(dev)
+    pf(placed, {"tokens": toks[:, :64]})                  # warm-up
+    sync()
+    out = {"coord": mesh.get_coordinate(), "card_gb": card_used_gb(),
+           "card_steps": card,
+           "weights_gb": torch.cuda.memory_allocated() / 1e9
+           if dev.type == "cuda" else float("nan")}
+    logits_out, own = [], []
+    with MeshProbe() as probe:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        probe.in_prefill = True
+        logits, cache = pf(placed, {"tokens": toks})
+        probe.in_prefill = False
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = dict(ops.LAUNCHES)
+        out["variants"] = dict(fa.VARIANT_LAUNCHES)
+        out["heads"] = list(probe.heads)
+        full = shd.full(logits)
+        logits_out.append(full.float().cpu().numpy())
+        own.append(full[:, -1].argmax(-1).to(torch.int32))
+        per_step, decode_s = [], 0.0
+        for i in range(steps):
+            tok = (torch.from_numpy(forced[:, i]).to(dev)
+                   if forced is not None else own[-1])
+            ops.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = df(dparams, cache, {"tokens": tok[:, None]})
+            full = shd.full(logits)
+            sync()
+            decode_s += time.perf_counter() - t0
+            per_step.append(ops.LAUNCHES["flash_decode_partial"])
+            logits_out.append(full.float().cpu().numpy())
+            own.append(full[:, -1].argmax(-1).to(torch.int32))
+        out["decode_s"], out["decode_launches"] = decode_s, per_step
+        out["offsets"] = sorted(probe.offsets)
+        out["routes"] = probe.route_arrays() if rank == 0 else None
+    # one more step with each collective timed from a synchronised card
+    with MeshProbe(timed=True) as probe:
+        sync()
+        t0 = time.perf_counter()
+        df(dparams, cache, {"tokens": own[-1][:, None]})
+        sync()
+        out["coll_share"] = probe.coll_s / (time.perf_counter() - t0)
+    if rank == 0:
+        out["logits"] = logits_out
+        out["tokens"] = torch.stack(own, 1).cpu().numpy()
+    return out
+
+
+MESH_JOBS = {"rm1": mesh_rm1_rank, "lm": mesh_lm_rank}
+
+
+def one_device_lm(model, params, prompt, T: int, steps: int, dev):
+    """The same model on one device, greedy: (logits per call as fp32
+    numpy, tokens (B, steps + 1), the prefill's routes)."""
+    with torch.no_grad(), MeshProbe() as probe:
+        probe.in_prefill = True
+        logits, cache = model.prefill(
+            params, {"tokens": torch.from_numpy(prompt).to(dev)}, cache_len=T)
+        probe.in_prefill = False
+        out, toks = [logits.float().cpu().numpy()], [logits[:, -1].argmax(-1)]
+        for _ in range(steps):
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": toks[-1][:, None].to(torch.int32)})
+            out.append(logits.float().cpu().numpy())
+            toks.append(logits[:, -1].argmax(-1))
+        routes = probe.route_arrays()
+    return out, torch.stack(toks, 1).to(torch.int32).cpu().numpy(), routes
+
+
+def one_device_model(cfg, tokens: int):
+    """The model one device is held at, and the published MoE capacity
+    at a prefill of ``tokens`` (None without MoE).  EP rounds its
+    per-shard capacity up to a multiple of 8, as the reference's EP
+    branch does, so one device is held at the capacity the mesh keeps:
+    a capacity factor that gives exactly it."""
+    from repro_torch.models import registry
+
+    if cfg.moe is None:
+        return registry.build(cfg), None
+    m = cfg.moe
+    base = tokens * m.top_k / m.num_experts
+    cap = max(8, int(base * m.capacity_factor))
+    cap_ep = -(-cap // 8) * 8
+    return registry.build(cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=(cap_ep + 0.5) / base))), cap
+
+
+def mesh_lm_line(tag, res, B, steps, card) -> None:
+    for r, x in enumerate(res):
+        log(f"[mesh] {tag} rank {r} {tuple(x['coord'])}: prefill "
+            f"{x['prefill_s'] * 1e3:.3f} ms, decode "
+            f"{x['decode_s'] / steps * 1e3:.3f} ms a step, "
+            f"{B * steps / x['decode_s']:.1f} tokens/s, collectives "
+            f"{x['coll_share']:.3f} of a step's wall (gloo: staged through "
+            f"host memory, not NVLink), peak {x['peak_gb']:.3f} GB; prefill "
+            f"launches {x['prefill_launches']} (kernels {x['variants']}, "
+            f"local heads {sorted(set(x['heads']))}); decode launches a "
+            f"step {sorted(set(x['decode_launches']))}, kv_offset "
+            f"{x['offsets']}; {card}")
+
+
+def lm_case(arch, dev, fp32: bool = False) -> dict:
+    """An LM arch at its published widths (the fp32 copies' depth cut,
+    ``MESH_FP32``), its weights drawn once on the card, and the same
+    model served on one device before the ranks start: greedy tokens,
+    logits per call, the prefill's MoE routes."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    cfg = configs.get_config(arch)
+    if fp32:
+        layers, B, S, T, steps = MESH_FP32[arch]
+        cfg = cfg.replace(num_layers=layers, dtype="float32",
+                          param_dtype="float32")
+    else:
+        B, S, T, steps = MESH_LM[arch]
+    params = drawn_compact(lambda: registry.build(cfg).init(0, device=dev),
+                           dev)
+    prompt = np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    ref_model, cap = one_device_model(cfg, B * S)
+    want, tokens, routes = one_device_lm(ref_model, params, prompt, T, steps,
+                                         dev)
+    free_card()
+    tag = f"{arch} fp32 copy ({cfg.num_layers} layers)" if fp32 else arch
+    log(f"[mesh] {tag}: batch {B}, prompt {S}, {T} slots, {steps} steps; "
+        f"the parent holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"before the ranks")
+    return {"tag": tag, "cfg": cfg, "fp32": fp32, "want": want,
+            "tokens": tokens, "routes": routes, "cap": cap, "B": B,
+            "steps": steps, "T": T,
+            "payload": {"cfg": cfg, "params": params, "prompt": prompt,
+                        "cache": T, "steps": steps, "dev": dev,
+                        # bf16 decodes teacher-forced on one device's tokens
+                        "forced": None if fp32 else tokens}}
+
+
+def lm_check(case, res, card, rows_launches) -> None:
+    """Every rank's launches; then the results against one device's:
+    fp32, greedy tokens equal, logits within 1e-4 and MoE routes equal;
+    bf16, logits within ten bf16 steps (dense; MoE: see below)."""
+    cfg, tag, steps, T = case["cfg"], case["tag"], case["steps"], case["T"]
+    mesh_lm_line(tag, res, case["B"], steps, card)
+    log(f"[mesh] {tag}: the card holds {max(x['card_gb'] for x in res):.2f} "
+        f"of {torch.cuda.mem_get_info()[1] / 1e9:.2f} GB while the ranks "
+        f"run (the parent's one copy of the weights, their blocks and "
+        f"{MESH_WORLD + 1} CUDA contexts): at the ranks' start, after "
+        f"placing, after the decode placement "
+        f"{[round(g, 2) for g in res[0]['card_steps']]}; a rank's blocks "
+        f"{res[0]['weights_gb']:.2f} GB")
+    n_layers, hp = cfg.num_layers, cfg.padded_heads
+    for r, x in enumerate(res):
+        assert x["decode_launches"] == [n_layers] * steps, (r, x)
+        assert x["offsets"] == sorted({x["coord"][1] * T // MESH_WORLD}), x
+        attn = x["prefill_launches"]["flash_attention"]
+        if hp % MESH_WORLD == 0:         # head-TP: the kernel on local heads
+            assert attn == n_layers, x
+            assert set(x["heads"]) == {hp // MESH_WORLD}, x
+            if not case["fp32"]:
+                assert x["variants"] == {"wgmma": n_layers, "scalar": 0}, x
+        else:                            # context parallel: blocked, no kernel
+            assert attn == 0, x
+    assert sum(x["offsets"][0] > 0 for x in res) == MESH_WORLD - 1
+    got, want = res[0]["logits"], case["want"]
+    assert all(np.isfinite(g).all() for g in got)
+    agree = float((res[0]["tokens"] == case["tokens"]).mean())
+    if case["fp32"]:
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        log(f"[mesh] {tag}: greedy tokens agree with one device's on "
+            f"{agree:.3f}, logits within {err:.3g} (tolerance 1e-4)")
+        if cfg.moe is not None:
+            check_routes(tag, cfg, res[0]["routes"], case["routes"],
+                         case["cap"], exact=True)
+        np.testing.assert_array_equal(res[0]["tokens"], case["tokens"])
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+    else:
+        ratios = [float(np.abs(g - w).max()) / bf16_tol(torch.from_numpy(w))
+                  for g, w in zip(got, want)]
+        log(f"[mesh] {tag}: bf16 logits against one device's, the largest "
+            f"difference over ten bf16 steps at the logits' magnitude: "
+            f"prefill {ratios[0]:.3f}, teacher-forced steps "
+            f"{[round(x, 3) for x in ratios[1:]]}; greedy tokens agree on "
+            f"{agree:.3f}")
+        if cfg.moe is not None:
+            # bf16 routing flips at near-ties under any other summation
+            # order, and a flipped pair changes the token's output, so the
+            # flips compound with depth; routes and logits are held
+            # exactly in the fp32 copy, and reported here
+            check_routes(tag, cfg, res[0]["routes"], case["routes"],
+                         case["cap"], exact=False)
+        else:
+            assert max(ratios) <= 1.0, (tag, ratios)
+    rows_launches[tag] = [{"flash_attention": x["prefill_launches"][
+        "flash_attention"], "flash_decode_partial": sum(x["decode_launches"])}
+        for x in res]
+
+
+def check_routes(arch, cfg, mroutes, routes, cap: int, exact: bool) -> None:
+    """The MoE dispatch on the mesh against one device's at the mesh's
+    capacity: the share of equal route ids and kept pairs a layer;
+    with ``exact``, every one equal."""
+    from repro_torch.models import moe
+
+    assert len(mroutes) == len(routes) == cfg.num_layers
+    ids_eq = [float((mi == si).mean()) for (mi, _, _), (si, _, _)
+              in zip(mroutes, routes)]
+    kept_eq = [float((mk == sk).mean()) for (_, mk, _), (_, sk, _)
+               in zip(mroutes, routes)]
+    # the pairs that the published capacity would keep otherwise
+    published = sum(int((mk != moe.dispatch(
+        torch.from_numpy(mi), cfg.moe.padded_experts, cap)[1].numpy()).sum())
+        for mi, mk, _ in mroutes)
+    log(f"[mesh] {arch}: route ids equal to one device's on "
+        f"{[round(x, 4) for x in ids_eq]} of the (token, k) pairs a layer, "
+        f"kept pairs on {[round(x, 4) for x in kept_eq]}, at the mesh's "
+        f"capacity {mroutes[0][2]} (one device held there; the published "
+        f"factor gives {cap}: on the mesh's routes {published} of "
+        f"{mroutes[0][0].size * cfg.num_layers} pairs would be kept "
+        f"otherwise)")
+    for (mi, mk, mcap), (si, sk, scap) in zip(mroutes, routes):
+        assert mcap == scap, (mcap, scap)
+        if exact:
+            np.testing.assert_array_equal(mi, si)
+            np.testing.assert_array_equal(mk, sk)
+
+
+def rm1_check(res, reqs, scores, card) -> list:
+    """RM1's mesh scores on every rank within ``SCORE_ATOL`` of
+    ``[serve]``'s, the survivors' within it of the first mesh's; returns
+    each rank's fused-bag launches."""
+    for r, x in enumerate(res):
+        log(f"[mesh] rm1 rank {r} {tuple(x['coord'])}: block {x['block']}, "
+            f"serve {x['serve_s'] * 1e3:.1f} ms for {len(reqs)} requests, "
+            f"bag launches {x['launches']}; card in use {x['card_gb']:.2f} "
+            f"GB; healthy mesh {x['healthy']}"
+            + (f": block {x['healthy_block']}, launches "
+               f"{x['healthy_launches']}" if "healthy_scores" in x else
+               ": not a survivor")
+            + f"; peak {x['peak_gb']:.3f} GB; {card}")
+    worst = worst_h = 0.0
+    survivors = [x for x in res if "healthy_scores" in x]
+    assert len(survivors) == 2
+    for x in res:
+        assert x["launches"]["embedding_bag_fused_flat"] > 0, x["launches"]
+        for rid, s in x["scores"].items():
+            worst = max(worst, float(np.abs(s - scores[rid]).max()))
+            np.testing.assert_allclose(s, scores[rid], rtol=0, atol=SCORE_ATOL)
+    for x in survivors:
+        assert x["healthy_launches"]["embedding_bag_fused_flat"] > 0
+        for rid, s in x["healthy_scores"].items():
+            worst_h = max(worst_h, float(np.abs(
+                s - res[0]["scores"][rid]).max()))
+            np.testing.assert_allclose(s, res[0]["scores"][rid], rtol=0,
+                                       atol=SCORE_ATOL)
+    log(f"[mesh] rm1: every rank's scores within {SCORE_ATOL} of [serve]'s "
+        f"(worst {worst:.3g}); after healthy_mesh({{'model': 2}}, 0.4) the "
+        f"2 survivors' within {SCORE_ATOL} of the first mesh's (worst "
+        f"{worst_h:.3g})")
+    return [x["launches"]["embedding_bag_fused_flat"] for x in res]
+
+
+def mesh_phase(dev, card, reqs, scores, rows) -> None:
+    """Two spawns of four rank processes on the one card: smollm-135m on
+    (1, 4), the fp32 copies, then RM1 V0 on (data 2, model 2) and on the
+    survivors of a failure; then qwen2-moe-a2.7b on (1, 4) alone (the
+    parent's copy of its weights and the ranks' blocks hold 72 GB)."""
+    from repro_torch.configs import rm1
+    from repro_torch.models.dlrm import DLRMModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[mesh] {MESH_WORLD} rank processes on cuda:0, joined by a file:// "
+        f"store; backend gloo (NCCL refuses two ranks on one device).  "
+        f"Routes: lsc/full -> c10d all_gather then a local slice, never "
+        f"DTensor's functional collectives (they crash on gloo CUDA "
+        f"tensors: tools/gloo_probe.py --funcol); psum/pmax -> all_reduce "
+        f"in fp32; all_gather -> all_gather (native on gloo CUDA)")
+    lm = {}
+    cfg = rm1.CONFIG.replace(
+        name="rm1.v0-rows40k",
+        dlrm=dataclasses.replace(rm1.CONFIG.dlrm, rows_per_table=ROWS))
+    cases = ([lm_case("smollm-135m", dev)]
+             + [lm_case(a, dev, fp32=True) for a in MESH_FP32])
+    jobs = [("lm", c["payload"]) for c in cases] + [("rm1", {
+        "cfg": cfg, "params": DLRMModel(cfg).init(0, device=dev),
+        "reqs": reqs, "batch": MESH_RM1_BATCH, "dev": dev})]  # [serve]'s
+    per_job, wall_s = run_ranks(jobs)
+    log(f"[mesh] {[c['tag'] for c in cases] + ['rm1']}: {MESH_WORLD} ranks "
+        f"spawned, served and joined in {wall_s:.1f} s")
+    for c, res in zip(cases, per_job):
+        lm_check(c, res, card, lm)
+    launches = {"rm1": rm1_check(per_job[-1], reqs, scores, card)}
+    del cases, jobs, per_job, c, res
+    free_card()
+
+    case = lm_case("qwen2-moe-a2.7b", dev)
+    (res,), wall_s = run_ranks([("lm", case["payload"])])
+    log(f"[mesh] {case['tag']}: {MESH_WORLD} ranks spawned, served and "
+        f"joined in {wall_s:.1f} s")
+    lm_check(case, res, card, lm)
+    del case, res
+    free_card()
+    for row in rows:
+        if row["name"] == "embedding_bag_fused_flat":
+            row["mesh_launches"] = launches
+        if row["name"] in ("flash_attention", "flash_decode_partial"):
+            row["mesh_launches"] = {tag: [n[row["name"]] for n in per]
+                                    for tag, per in lm.items()}
+    log(f"[mesh] phase took {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2362,6 +3001,9 @@ def main() -> int:
 
     # -------------------------------------------------------------- train
     train_phase(dev, card)
+
+    # --------------------------------------------------------------- mesh
+    mesh_phase(dev, card, reqs, scores, rows)
 
     log(card)
     log(json.dumps({"kernels": rows}))

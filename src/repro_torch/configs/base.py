@@ -8,8 +8,8 @@ paper's model shape, and ``ShapeConfig``, ``SHAPES`` and
 ``cache_specs`` size.  ``scan_layers`` and ``remat`` are kept so that a
 config compares field for field with the reference's; the port loops
 over layers in Python (``scan_layers`` is not read) and checkpoints
-each layer as ``remat`` says when it trains.  ``MeshConfig`` waits for
-the mesh (ROADMAP Queue 1 item 8).
+each layer as ``remat`` says when it trains.  ``MeshConfig`` (the
+production meshes) waits for the dry-run (ROADMAP Queue 1 item 8d).
 """
 from __future__ import annotations
 

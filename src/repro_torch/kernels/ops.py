@@ -16,12 +16,19 @@ Training takes the reference's differentiable path instead
 (``models.layers.flash_attention_blocked``, ``kernels.ref.embedding_bag_ref``),
 as the reference never differentiates its Pallas kernels.  The CPU
 branch, the plain versions, stays differentiable.
+
+No DTensor reaches a kernel: on a mesh the models call every kernel on a
+rank's local blocks (``distributed.sharding.local``), and every wrapper
+refuses a DTensor operand (:func:`refuse_dtensor`), on either device,
+rather than hand its sharded storage to a kernel (or its plain version)
+as if it were the whole tensor.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import flash_attention as _fa
@@ -49,6 +56,15 @@ def refuse_grad(kernel: str, *operands) -> None:
             f"torch.no_grad()")
 
 
+def refuse_dtensor(kernel: str, *operands) -> None:
+    """Raise when an operand is a DTensor: a kernel takes a rank's local
+    blocks (``DTensor.to_local()``), never the sharded whole."""
+    if any(isinstance(t, DTensor) for t in operands):
+        raise TypeError(
+            f"{kernel}: a DTensor operand; kernels run on a rank's local "
+            f"blocks (distributed.sharding.local, DTensor.to_local())")
+
+
 def reset_launches() -> None:
     """Zero ``LAUNCHES`` and the attention kernels' per-variant counts
     (``flash_attention.VARIANT_LAUNCHES``)."""
@@ -62,6 +78,7 @@ def embedding_bag(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     (T, R, D), idx (B, T, P) int32 -1 padded -> pooled (B, T, D) in the
     tables' dtype, one launch for the whole stack.  A row past its
     table's end reads that table's last row."""
+    refuse_dtensor("embedding_bag", tables, idx)
     if tables.device.type == "cpu":
         return _eb.embedding_bag_stacked_plain(tables, idx)
     refuse_grad("embedding_bag", tables)
@@ -74,6 +91,7 @@ def embedding_bag_fused_flat(flat_table: torch.Tensor, offsets: torch.Tensor,
                              idx: torch.Tensor) -> torch.Tensor:
     """CN-side pooling of a flat shard: (sum_t R_t, D), offsets (T,)
     int32, idx (B, T, P) int32 -1 padded -> pooled (B, T, D) fp32."""
+    refuse_dtensor("embedding_bag_fused_flat", flat_table, offsets, idx)
     if flat_table.device.type == "cpu":
         return _eb.embedding_bag_flat_plain(flat_table, offsets, idx)
     refuse_grad("embedding_bag_fused_flat", flat_table)
@@ -86,6 +104,7 @@ def embedding_bag_nmp_flat(flat_table: torch.Tensor, offsets: torch.Tensor,
                            idx: torch.Tensor) -> torch.Tensor:
     """On-MN (near-memory) pooling: same contract and bits as
     :func:`embedding_bag_fused_flat`, table-major execution."""
+    refuse_dtensor("embedding_bag_nmp_flat", flat_table, offsets, idx)
     if flat_table.device.type == "cpu":
         return _eb.embedding_bag_flat_plain(flat_table, offsets, idx)
     refuse_grad("embedding_bag_nmp_flat", flat_table)
@@ -128,6 +147,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, S, D); k, v (B, Hkv, T, D) -> (B, H, S, D) in q's dtype.
     The block sizes shape the plain version only: the kernels pick their
     own tiles (``flash_attention.variant`` says which kernel runs)."""
+    refuse_dtensor("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          q_block=q_block, kv_block=kv_block)
@@ -146,6 +166,7 @@ def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
     ``kv_block`` shapes the plain version only.  On the card one call is
     one launch in ``LAUNCHES`` but may be two device kernels: the
     split-KV kernel, then the merge of its splits."""
+    refuse_dtensor("flash_decode_partial", q, k_cache, v_cache, pos)
     if q.device.type == "cpu":
         return _fd.flash_decode_plain(q, k_cache, v_cache, pos,
                                       kv_offset=kv_offset, kv_block=kv_block)

@@ -13,7 +13,7 @@ tolerance:
 
 The DLRM archs train on ``dlrm_batch`` and the LMs on ``lm_batch``,
 through ``data.queries.ShardedLoader``.  The reference's ``--mesh``
-waits for the mesh (ROADMAP Queue 1 item 8).
+waits for the training half of the mesh (ROADMAP Queue 1 item 8b).
 """
 from __future__ import annotations
 

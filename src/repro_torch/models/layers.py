@@ -1,4 +1,4 @@
-"""Shared transformer building blocks, in PyTorch: the no-mesh half of
+"""Shared transformer building blocks, in PyTorch: the counterpart of
 ``repro.models.layers``.
 
 Attention modes
@@ -26,10 +26,24 @@ o in it, the kernels keep p, o, l and m in fp32 (as the Pallas kernels
 do); :func:`decode_attention_unsharded` casts the normalised output to
 the working dtype.  In bf16 the two differ at the bf16 level.
 
-The reference's mesh half (``context_parallel_attention``,
-``sharded_decode_attention``, ``batch_pspec_entry``, and the sharding
-constraints that are no-ops without a mesh) waits for the mesh (ROADMAP
-Queue 1 item 8).
+The mesh half (``distributed.sharding`` conventions: each rank computes
+on local blocks and combines them with explicit collectives):
+
+context parallel: :func:`context_parallel_attention` runs the blocked
+                attention on a rank's S/n query rows at their
+                ``q_offset`` against the whole KV and gathers the rows, as
+                the reference's ``shard_map`` does with its jnp attention
+                (the kernel has no ``q_offset``);
+seq-sharded KV: :func:`sharded_decode_attention` writes the new token's
+                K/V on the rank that owns ``pos`` and runs the decode
+                kernel on each rank's T/n slice at ``kv_offset``; only the
+                (o, l, m) partials cross the network
+                (:func:`combine_partials` over the axis: the Fsum);
+weights:        :func:`mesh_heads`, :func:`mesh_out` and
+                :func:`mesh_mlp` contract on the weights' local blocks
+                (a sharded contracting dim: a local slice of x and a
+                psum; a sharded output dim: local heads or columns),
+                :func:`mesh_embed` is the vocab-parallel lookup.
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models.params import Spec
 
@@ -162,6 +177,12 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg, pos: Optional[torch.Tensor]):
     q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    return _finish_qkv(p, q, k, v, cfg, pos)
+
+
+def _finish_qkv(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                cfg, pos: Optional[torch.Tensor]):
+    """Bias, q/k norm and rope on the projected heads."""
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -268,6 +289,102 @@ def flash_attention_blocked(q: torch.Tensor, k: torch.Tensor,
     return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, D)
 
 
+def context_parallel_attention(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True,
+                               axis: str = "model", q_block: int = 512,
+                               kv_block: int = 1024) -> torch.Tensor:
+    """Context-parallel attention for head counts that cannot shard over
+    the model axis (smollm 9H, whisper 20H): each rank runs the blocked
+    attention over its S/n query rows, at their ``q_offset``, against the
+    whole KV, instead of every rank repeating the whole attention; the
+    rows are gathered over ``axis``.
+
+    q: (B,S,H,D) and k/v: (B,T,Hkv,D), this rank's batch block ->
+    (B,S,H,D)."""
+    i, n = shd.entry_index(axis)
+    s_loc = q.shape[1] // n
+    off = i * s_loc
+    o = flash_attention_blocked(
+        q[:, off:off + s_loc], k, v, causal=causal, q_offset=off,
+        q_block=min(q_block, s_loc), kv_block=min(kv_block, k.shape[1]))
+    return shd.all_gather(o, axis, 1)
+
+
+def use_context_parallel(mesh, seq_len: int, axis: str = "model") -> bool:
+    """CP applies when heads are NOT sharded (FSDP mode), the mesh has a
+    model axis, and the sequence divides it (train/prefill only)."""
+    n = shd.mesh_shape(mesh).get(axis, 1)
+    if n <= 1:
+        return False
+    if shd.resolve(("heads",)) != shd.resolve((None,)):
+        return False
+    return seq_len > 1 and seq_len % n == 0
+
+
+def batch_pspec_entry(batch: int, mesh) -> shd.Entry:
+    """The entry for the batch dim under the active 'batch' rule,
+    dropping axes the batch size cannot divide (e.g. global_batch=1)."""
+    entry = shd.resolve(("batch",))[0]
+    if entry is None:
+        return None
+    sizes = shd.mesh_shape(mesh)
+    axes = (entry,) if isinstance(entry, str) else tuple(entry)
+    keep = []
+    prod = 1
+    for a in axes:
+        if batch % (prod * sizes[a]) == 0:
+            keep.append(a)
+            prod *= sizes[a]
+    if not keep:
+        return None
+    return keep[0] if len(keep) == 1 else tuple(keep)
+
+
+def mesh_heads(x: torch.Tensor, w, names) -> torch.Tensor:
+    """x (..., d) whole @ w (d, h, k) under ``names`` -> (..., h', k):
+    the heads of this rank's block of ``w``.  A contracting dim sharded
+    over an axis contracts this rank's slice of x, then a psum."""
+    din = shd.spec(w, *names)[0]
+    wl = shd.local(w, *names)
+    i, n = shd.entry_index(din)
+    step = x.shape[-1] // n
+    return shd.psum(_heads(x.narrow(-1, i * step, step), wl), din)
+
+
+def mesh_out(o: torch.Tensor, w, names) -> torch.Tensor:
+    """o (..., h', k) @ w (h, k, d) under ``names`` -> (..., d) whole.
+    ``o`` holds the heads of this rank's block of ``w`` (all of them
+    when the heads dim is whole): a sharded heads dim is a psum, a
+    sharded output dim a gather."""
+    hspec, _, dspec = shd.spec(w, *names)
+    wl = shd.local(w, *names)
+    out = shd.psum(o.flatten(-2) @ wl.flatten(0, 1), hspec)
+    return shd.all_gather(out, dspec, -1)
+
+
+def mesh_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU on this rank's ``ffn`` columns of ``wi_*`` and rows of
+    ``wo``, then a psum over the ``ffn`` axes (Megatron TP)."""
+    fspec = shd.spec(p["wi_gate"], "embed", "ffn")[1]
+    lp = {"wi_gate": shd.local(p["wi_gate"], "embed", "ffn"),
+          "wi_up": shd.local(p["wi_up"], "embed", "ffn"),
+          "wo": shd.local(p["wo"], "ffn", "embed")}
+    return shd.psum(mlp_apply(lp, x), fspec)
+
+
+def mesh_embed(table, tokens: torch.Tensor) -> torch.Tensor:
+    """Vocab-parallel lookup: each rank looks up the tokens of its vocab
+    rows (zero rows for the others), then a psum; exactly one rank adds
+    each token's row."""
+    vspec = shd.spec(table, "vocab", "embed")[0]
+    tl = shd.local(table, "vocab", "embed")
+    i, _ = shd.entry_index(vspec)
+    t = tokens.long() - i * tl.shape[0]
+    hit = ((t >= 0) & (t < tl.shape[0]))[..., None]
+    e = torch.where(hit, F.embedding(t.clamp(0, tl.shape[0] - 1), tl), 0.0)
+    return shd.psum(e.to(tl.dtype), vspec)
+
+
 # ------------------------------------------------------------- decode
 
 
@@ -288,14 +405,51 @@ def decode_attention_local(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def combine_partials(o: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
-                     axis_name: Optional[str] = None) -> torch.Tensor:
-    """Combine flash-decode partials: with no mesh axis, normalise the
-    one slice's."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "combining partials across a mesh axis waits for the mesh "
-            "(ROADMAP Queue 1 item 8)")
-    return (o / l.clamp(min=1e-37)[..., None]).to(o.dtype)
+                     axis_name: shd.Entry = None) -> torch.Tensor:
+    """Combine flash-decode partials across a mesh axis (or normalise the
+    one slice's): an all-reduce MAX of m, then SUM of l * corr and
+    o * corr, corr = exp(m - m_max).  A slice wholly after ``pos`` has
+    m = -1e30, so its corr is 0."""
+    if axis_name is None:
+        return (o / l.clamp(min=1e-37)[..., None]).to(o.dtype)
+    m_glob = shd.pmax(m, axis_name)
+    corr = torch.exp(m - m_glob)
+    # one psum carries both sums: (..., D) of o * corr and (..., 1) of l
+    lo = shd.psum(torch.cat([o * corr[..., None].to(o.dtype),
+                             (l * corr)[..., None].to(o.dtype)], -1),
+                  axis_name)
+    o_glob, l_glob = lo[..., :-1], lo[..., -1]
+    return o_glob / l_glob.clamp(min=1e-37)[..., None].to(o.dtype)
+
+
+def sharded_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, pos: torch.Tensor,
+                             axis: shd.Entry = "model"):
+    """Decode attention over a sequence-sharded KV cache.
+
+    q: (B,H,D), this rank's batch block; k_cache/v_cache: this rank's
+    (B, T/n, Hkv, D) slice of the (B, T, Hkv, D) cache, the slice of
+    block ``i`` of ``axis`` holding rows [i*T/n, (i+1)*T/n).  The new
+    token's K/V is written IN PLACE only on the rank that owns ``pos``
+    (a ``pos`` past the cache writes its last slot, as the unsharded
+    path does): the owner is chosen on the device, every other rank
+    writes its row back unchanged, so the step stays sync-free.  Each
+    rank runs the decode kernel on its slice at ``kv_offset`` = i*T/n;
+    only the (o, l, m) partials cross the network.  -> (o (B,H,D) in
+    q's dtype, k_cache, v_cache)."""
+    i, n = shd.entry_index(axis)
+    t_loc = k_cache.shape[1]
+    off = i * t_loc
+    row = pos.reshape(1).to(torch.int64).clamp(max=t_loc * n - 1) - off
+    own = ((row >= 0) & (row < t_loc)).view(1, 1, 1, 1)
+    row = row.clamp(0, t_loc - 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cur = cache.index_select(1, row)
+        cache.index_copy_(1, row, torch.where(
+            own, new.unsqueeze(1).to(cache.dtype), cur))
+    o, l, m = decode_attention_local(q, k_cache, v_cache, pos, kv_offset=off)
+    return combine_partials(o, l, m, axis).to(q.dtype), k_cache, v_cache
 
 
 def decode_attention_unsharded(q: torch.Tensor, k_cache: torch.Tensor,

@@ -41,8 +41,8 @@ Differences from the reference, each deliberate:
 block's attention through the differentiable
 ``layers.flash_attention_blocked`` and checkpoints as the reference's
 scans do (``cfg.remat``): each Mamba2 layer, and each group (its layers
-and the shared block) around them.  ``cache_logical`` waits for the
-mesh (ROADMAP Queue 1 item 8).
+and the shared block) around them.  ``cache_logical`` and the mesh
+branches wait for ROADMAP Queue 1 item 8c.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Mixture-of-experts FFN, in PyTorch: the no-mesh branch of
+"""Mixture-of-experts FFN, in PyTorch: the counterpart of
 ``repro.models.moe``.
 
 DisaggRec mapping: experts are the "memory nodes", large parameter pools
@@ -31,9 +31,15 @@ Differences from the reference, each deliberate:
   as the reference's one-hot is constant).  The backward of a gather
   adds with atomics on the card, so gradients need not be bitwise
   repeatable there; the forward stays so.
-- Expert parallelism (the reference's ``shard_map`` over the ``model``
-  axis) waits for the mesh (ROADMAP Queue 1 item 8): with no mesh the
-  reference takes the branch ported here.
+
+Expert parallelism (the reference's ``shard_map`` over the ``model``
+axis): experts shard over ``model``, each rank dispatches its block of
+tokens (the reference's batch sharding of the (B*S) tokens) to its own
+``E_pad/ep`` experts at ``e_off``, with the per-shard capacity rounded up
+to a multiple of 8 as the reference rounds it, and one all-reduce SUM
+over ``model`` combines the ranks' outputs: only (T, d) crosses, never
+(T, k, d) per-expert outputs.  Under a mesh without EP every rank
+dispatches every token, as the reference's global dispatch does.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.models.layers import batch_pspec_entry
 from repro_torch.models.params import Spec
 
 
@@ -120,22 +128,27 @@ def dispatch(ids: torch.Tensor, Ep: int,
 
 def _moe_local(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
                wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor, *,
-               capacity: int, cfg) -> torch.Tensor:
-    """Dispatch the tokens to the experts' capacity buffers, compute, and
-    combine each token's kept slots in ascending slot order."""
+               capacity: int, cfg, e_off: int = 0) -> torch.Tensor:
+    """Dispatch the tokens to the capacity buffers of the experts
+    [e_off, e_off + E) that ``wg``/``wu``/``wo`` hold (E = their leading
+    dim; all of them with no mesh), compute, and combine each token's
+    kept slots on these experts in ascending slot order."""
     T, d = x2d.shape
-    Ep = cfg.moe.padded_experts
+    E = wg.shape[0]
     C = capacity
-    slot, keep = dispatch(ids, Ep, C)
+    slot, keep = dispatch(ids, cfg.moe.padded_experts, C)
+    if E != cfg.moe.padded_experts:       # a rank's experts under EP
+        keep = keep & (ids >= e_off) & (ids < e_off + E)
+        slot = torch.where(keep, slot - e_off * C, E * C)
     tok = torch.arange(T, device=x2d.device)[:, None].expand_as(slot)
     # scatter scalar token ids into slots, then gather rows once: an
     # empty slot (and the dump slot) holds token T, a zero row
-    tok_of = torch.full((Ep * C + 1,), T, dtype=torch.int64,
+    tok_of = torch.full((E * C + 1,), T, dtype=torch.int64,
                         device=x2d.device)
     tok_of.index_put_((slot.reshape(-1),), tok.reshape(-1))
     xpad = torch.cat([x2d, x2d.new_zeros(1, d)])
-    xbuf = xpad[tok_of[:Ep * C]].reshape(Ep, C, d)
-    out = _expert_compute(xbuf, wg, wu, wo).reshape(Ep * C, d)
+    xbuf = xpad[tok_of[:E * C]].reshape(E, C, d)
+    out = _expert_compute(xbuf, wg, wu, wo).reshape(E * C, d)
     out = torch.cat([out, out.new_zeros(1, d)])
     # the combine: a token's slots in ascending order, as the
     # reference's scatter-add visits them; a dropped pair adds zero
@@ -148,28 +161,98 @@ def _moe_local(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, *,
-              capacity_factor: Optional[float] = None):
+              capacity_factor: Optional[float] = None,
+              batch_entry: shd.Entry = None):
     """MoE FFN. x: (B, S, d) (or (B, 1, d) decode). Returns (y, aux).
 
     The capacity uses the real expert count (the padded experts are
     never routed to, but keep their slots in the buffer, as in the
     reference): ``max(8, int(T * top_k / num_experts * capacity_factor))``.
+
+    Under a DeviceMesh ``x`` is this rank's block of the batch, sharded
+    over the mesh axes ``batch_entry`` (None: the whole batch), and ``y``
+    the same block; ``aux`` then covers the tokens this rank routed.
     """
     B, S, d = x.shape
     m = cfg.moe
     if capacity_factor is None:
         capacity_factor = m.capacity_factor
+    if shd.device_mesh() is not None:
+        return _moe_mesh(p, x, cfg, capacity_factor, batch_entry)
     x2d = x.reshape(B * S, d)
     w, ids, aux = _route(x2d, p["router"], cfg)
     cap = max(8, int((B * S * m.top_k / m.num_experts) * capacity_factor))
     y = _moe_local(x2d, w, ids, p["wi_gate"], p["wi_up"], p["wo"],
                    capacity=cap, cfg=cfg)
     if m.num_shared_experts:
-        s = p["shared"]
-        g = x2d @ s["wi_gate"]
-        u = x2d @ s["wi_up"]
-        h = F.silu(g.float()).to(x2d.dtype) * u
-        sh = h @ s["wo"]
-        gate = torch.sigmoid(x2d.float() @ s["gate"].float())
-        y = y + sh * gate.to(y.dtype)
+        y = y + _shared(p["shared"], x2d, y.dtype, mesh=False)
+    return y.reshape(B, S, d), aux
+
+
+def _shared(s: dict, x2d: torch.Tensor, dtype: torch.dtype,
+            mesh: bool) -> torch.Tensor:
+    """The shared expert's gated output; on a mesh its ``ffn`` dim is
+    tensor-parallel (this rank's columns, then a psum)."""
+    if mesh:
+        fspec = shd.spec(s["wi_gate"], "embed", "ffn")[1]
+        s = {"wi_gate": shd.local(s["wi_gate"], "embed", "ffn"),
+             "wi_up": shd.local(s["wi_up"], "embed", "ffn"),
+             "wo": shd.local(s["wo"], "ffn", "embed"),
+             "gate": shd.local(s["gate"], "embed", None)}
+    g = x2d @ s["wi_gate"]
+    u = x2d @ s["wi_up"]
+    h = F.silu(g.float()).to(x2d.dtype) * u
+    sh = h @ s["wo"]
+    if mesh:
+        sh = shd.psum(sh, fspec)
+    gate = torch.sigmoid(x2d.float() @ s["gate"].float())
+    return sh * gate.to(dtype)
+
+
+def _reblock(t: torch.Tensor, src: shd.Entry, dst: shd.Entry) -> torch.Tensor:
+    """Rows sharded over ``src`` -> the same rows' block over ``dst``."""
+    if src == dst:
+        return t
+    t = shd.all_gather(t, src, 0)
+    i, n = shd.entry_index(dst)
+    step = t.shape[0] // n
+    return t.narrow(0, i * step, step)
+
+
+def _moe_mesh(p: dict, x: torch.Tensor, cfg, capacity_factor: float,
+              batch_entry: shd.Entry):
+    """The mesh branch: expert parallelism over ``model`` when the
+    experts rule maps there and the padded experts divide it, else every
+    rank dispatches every token to every expert."""
+    from repro_torch.models.layers import batch_pspec_entry
+
+    B, S, d = x.shape
+    m = cfg.moe
+    mesh = shd.device_mesh()
+    ep = shd.axis_size("model")
+    use_ep = (ep > 1 and shd.resolve(("experts",)) == ("model",)
+              and m.padded_experts % ep == 0)
+    T_tok = B * S * shd.entry_index(batch_entry)[1]
+    # the tokens this rank dispatches: the reference shards the (B*S)
+    # tokens over the batch axes that divide them, for EP's shard_map;
+    # without EP its dispatch is global
+    tok_entry = batch_pspec_entry(T_tok, mesh) if use_ep else None
+    x2d = _reblock(x.reshape(B * S, d), batch_entry, tok_entry)
+    w, ids, aux = _route(x2d, shd.local(p["router"], "embed", None), cfg)
+    names = ("experts", None, None)
+    wg, wu, wo = (shd.local(p[k], *names) for k in ("wi_gate", "wi_up", "wo"))
+    t_loc = x2d.shape[0]
+    if use_ep:
+        cap = max(8, int((t_loc * m.top_k / m.num_experts) * capacity_factor))
+        cap = -(-cap // 8) * 8
+        e_off = shd.entry_index("model")[0] * wg.shape[0]
+        y = shd.psum(_moe_local(x2d, w, ids, wg, wu, wo, capacity=cap,
+                                cfg=cfg, e_off=e_off), "model")
+    else:
+        cap = max(8, int((t_loc * m.top_k / m.num_experts) * capacity_factor))
+        y = _moe_local(x2d, w, ids, wg, wu, wo, capacity=cap, cfg=cfg)
+    y = _reblock(y, tok_entry, batch_entry)
+    if m.num_shared_experts:
+        x2d = x.reshape(B * S, d)
+        y = y + _shared(p["shared"], x2d, y.dtype, mesh=True)
     return y.reshape(B, S, d), aux

@@ -3,10 +3,9 @@
 The counterpart of ``repro.models.params``.  A *table* is a nested dict
 whose leaves are ``Spec(shape, names, init)``.  From one table the port
 derives initialized tensors (optionally stacked on a leading layer axis,
-as the reference stacks them for its scan over layers), shapes and
-analytic sizes.  The logical names are kept so a table reads like the
-reference's; the mesh that resolves them arrives with ROADMAP Queue 1
-item 8.
+as the reference stacks them for its scan over layers), logical sharding
+specs (``table_specs``, which ``distributed.sharding`` resolves on a
+mesh), shapes and analytic sizes.
 
 Init draws the reference's distributions from one explicit
 ``torch.Generator`` on the target device, not the reference's numbers:
@@ -82,6 +81,11 @@ def init_table(gen: torch.Generator, table: Dict, dtype: torch.dtype,
     """Initialize a (nested) table of Specs into tensors; with ``stack``,
     each leaf gets a leading axis of that many independent draws."""
     return tree_map(lambda s: _init_leaf(s, stack, gen, dtype, device), table)
+
+
+def table_specs(table: Dict, prefix: Tuple[Optional[str], ...] = ()) -> Dict:
+    """Logical-name tuples tree matching the table's tensor tree."""
+    return tree_map(lambda s: tuple(prefix) + tuple(s.names), table)
 
 
 def table_size(table: Dict, stack: int = 1) -> int:

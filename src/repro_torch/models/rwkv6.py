@@ -32,7 +32,8 @@ as ``cfg.remat`` says.  Under autograd each token of ``wkv_scan`` keeps
 a few (B, H, K, K) fp32 tensors, about 2 MB a sequence at rwkv6-3b's
 widths; the per-layer checkpoint keeps one layer's loop at a time, as
 the reference's nested checkpointed scans bound theirs.
-``cache_logical`` waits for the mesh (ROADMAP Queue 1 item 8).
+``cache_logical`` and the mesh branches wait for ROADMAP Queue 1 item
+8c.
 """
 from __future__ import annotations
 

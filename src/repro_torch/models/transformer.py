@@ -34,6 +34,22 @@ cut per layer by one ``unbind`` (``params.unstack``), and the CE runs in
 checkpointed chunks of 1024 positions, as in the reference.
 ``input_specs`` and ``cache_specs`` give meta tensors, the counterpart
 of ``jax.ShapeDtypeStruct``.
+
+Serving on a mesh (``distributed.sharding.use_mesh`` with a DeviceMesh
+and ``registry.make_rules``): each rank computes on its batch block and
+its weight blocks, with explicit collectives where GSPMD partitions the
+reference's math.  Prefill takes head-TP (each rank's heads, K/V
+repeated to the padded heads as in the reference; the kernel on local
+heads) or, when the heads do not divide the model axis, context
+parallelism (``layers.context_parallel_attention``); the MLP is
+Megatron-TP over ``ffn``, the MoE expert-parallel, the embedding
+vocab-parallel.  Decode keeps the cache sequence-sharded over ``model``
+(``layers.sharded_decode_attention``, the Fsum) and contracts the
+attention weights on their ``model``-sharded d_model dims.  Parameters,
+inputs and caches are DTensors or plain whole tensors; the logits come
+back placed ``("batch", "seq", "vocab")`` and the cache as
+``cache_logical`` says.  Training on a mesh waits for ROADMAP Queue 1
+item 8b.
 """
 from __future__ import annotations
 
@@ -43,11 +59,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import params as pm
@@ -102,6 +120,39 @@ def pad_cache(kv: torch.Tensor, cache_len: Optional[int],
         return kv
     pad = [0, 0] * (kv.dim() - 1 - axis) + [0, cache_len - kv.shape[axis]]
     return F.pad(kv, pad)
+
+
+#: the KV cache's logical axes: sequence-sharded, every kv head
+CACHE_LOGICAL = ("layers", "batch", "kv_seq", "cache_heads", "head_dim")
+
+#: the attention table's small leaves and their names
+_SMALL = {"bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+          "bv": ("kv_heads", "head_dim"), "q_norm": ("head_dim",),
+          "k_norm": ("head_dim",), "w1": ("embed", None), "b1": (None,),
+          "w2": (None, "embed"), "b2": ("embed",)}
+
+
+def _local_small(p: dict) -> dict:
+    """This rank's blocks of the biases and norms of an attention table
+    (or of the VLM projector) under their names."""
+    return {k: shd.local(v, *_SMALL[k]) for k, v in p.items() if k in _SMALL}
+
+
+def _qkv_mesh(lp: dict, x: torch.Tensor):
+    """Decode's q, k, v on a mesh: the weights' d_model dim is sharded
+    (``attn_din``), so each rank contracts its slice of x and one psum
+    sums the three partials."""
+    names = {"wq": ("attn_din", "heads", "head_dim"),
+             "wk": ("attn_din", "kv_heads", "head_dim"),
+             "wv": ("attn_din", "kv_heads", "head_dim")}
+    din = shd.spec(lp["wq"], *names["wq"])[0]
+    i, n = shd.entry_index(din)
+    step = x.shape[-1] // n
+    xs = x.narrow(-1, i * step, step)
+    parts = [L._heads(xs, shd.local(lp[w], *names[w])) for w in names]
+    sizes = [t.shape[-2] for t in parts]
+    out = shd.psum(torch.cat(parts, dim=-2), din)
+    return out.split(sizes, dim=-2)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -176,6 +227,12 @@ class DecoderLM:
                                          stack=self.cfg.num_layers)
         return params
 
+    def param_specs(self) -> Dict:
+        specs = pm.table_specs(self._top_table())
+        specs["layers"] = pm.table_specs(self._layer_table(),
+                                         prefix=("layers",))
+        return specs
+
     def param_shapes(self, dtype: Optional[torch.dtype] = None) -> Dict:
         dt = dtype or _dtype(self.cfg.param_dtype)
         shapes = pm.shape_tree(self._top_table(), dt)
@@ -193,6 +250,11 @@ class DecoderLM:
         """-> (out, (k, v)); ``train`` takes the differentiable blocked
         attention, else the kernel."""
         cfg = self.cfg
+        if shd.device_mesh() is not None:
+            if train:
+                raise NotImplementedError(
+                    "training on a mesh waits for ROADMAP Queue 1 item 8b")
+            return self._attention_mesh(lp, x, pos)
         q, k, v = L._project_qkv(lp, x, cfg, pos)
         kv = (k, v)
         if train:
@@ -207,27 +269,88 @@ class DecoderLM:
         out = o.flatten(-2) @ lp["wo"].flatten(0, 1)
         return out, kv
 
-    def _ffn(self, lp, hn):
-        """The layer's MLP, or its MoE FFN -> (out, aux loss)."""
+    def _attention_mesh(self, lp, x, pos):
+        """Prefill attention on a mesh: this rank's heads under head-TP,
+        its query rows under context parallelism; the cache's K/V with
+        every kv head."""
+        cfg = self.cfg
+        Hp, Hkv = cfg.padded_heads, cfg.num_kv_heads
+        hspec = shd.resolve_for_shape(("heads",), (Hp,))[0]
+        kvspec = shd.resolve_for_shape(("kv_heads",), (Hkv,))[0]
+        q = L.mesh_heads(x, lp["wq"], ("attn_din_c", "heads", "head_dim"))
+        k = L.mesh_heads(x, lp["wk"], ("attn_din_c", "kv_heads", "head_dim"))
+        v = L.mesh_heads(x, lp["wv"], ("attn_din_c", "kv_heads", "head_dim"))
+        q, k, v = L._finish_qkv(_local_small(lp), q, k, v, cfg, pos)
+        k, v = shd.all_gather(k, kvspec, 2), shd.all_gather(v, kvspec, 2)
+        kv = (k, v)
+        i, n = shd.entry_index(hspec)
+        if hspec is not None:
+            # GQA + head-TP: expand kv to the (padded) heads, then this
+            # rank's: the kernel runs on its local heads
+            G, h = Hp // Hkv, Hp // n
+            k = k.repeat_interleave(G, dim=2).narrow(2, i * h, h).contiguous()
+            v = v.repeat_interleave(G, dim=2).narrow(2, i * h, h).contiguous()
+            o = L.flash_attention(q, k, v, causal=True)
+        elif L.use_context_parallel(shd.device_mesh(), q.shape[1]):
+            o = L.context_parallel_attention(q, k, v, causal=True)
+        else:
+            o = L.flash_attention(q, k, v, causal=True)
+        mask = L.head_mask(cfg, o.dtype, o.device)
+        if mask is not None:
+            mask = mask.narrow(0, i * (Hp // n), Hp // n)
+            o = o * mask[None, None, :, None]
+        out = L.mesh_out(o, lp["wo"], ("heads", "head_dim", "attn_dout_c"))
+        return out, kv
+
+    def _ffn(self, lp, hn, batch_entry: shd.Entry = None):
+        """The layer's MLP, or its MoE FFN -> (out, aux loss).  On a
+        mesh ``hn`` is this rank's batch block, sharded over
+        ``batch_entry``."""
         if self.cfg.moe is not None:
-            return moe_mod.moe_apply(lp["moe"], hn, self.cfg)
+            return moe_mod.moe_apply(lp["moe"], hn, self.cfg,
+                                     batch_entry=batch_entry)
+        if shd.device_mesh() is not None:
+            return L.mesh_mlp(lp["mlp"], hn), 0.0
         return L.mlp_apply(lp["mlp"], hn), 0.0
 
-    def _layer(self, lp, x, pos, train: bool = False):
+    def _layer(self, lp, x, pos, train: bool = False,
+               batch_entry: shd.Entry = None):
         cfg = self.cfg
         h, kv = self._attention(
-            lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), pos, train)
+            lp["attn"], L.rmsnorm(x, shd.local(lp["ln1"], "embed"),
+                                  cfg.norm_eps), pos, train)
         x = x + h
-        h2, aux = self._ffn(lp, L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        h2, aux = self._ffn(lp, L.rmsnorm(x, shd.local(lp["ln2"], "embed"),
+                                          cfg.norm_eps), batch_entry)
         return x + h2, kv, aux
+
+    def _layers(self, params) -> list:
+        """The per-layer parameter trees (DTensors on a mesh)."""
+        if shd.device_mesh() is None:
+            return pm.unstack(params["layers"], self.cfg.num_layers)
+        parts = pm.tree_map(shd.unbind0, params["layers"])
+        return [pm.tree_map(lambda t: t[i], parts)
+                for i in range(self.cfg.num_layers)]
+
+    def _batch_entry(self, batch) -> shd.Entry:
+        """The mesh axes the batch block is sharded over (None without
+        a mesh, or when the batch does not divide them)."""
+        mesh = shd.device_mesh()
+        if mesh is None:
+            return None
+        return L.batch_pspec_entry(batch["tokens"].shape[0], mesh)
 
     def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
         cfg = self.cfg
-        x = L.embed_lookup(params["embed"], batch["tokens"])
+        if shd.device_mesh() is not None:
+            x = L.mesh_embed(params["embed"],
+                             shd.local(batch["tokens"], "batch", None))
+        else:
+            x = L.embed_lookup(params["embed"], batch["tokens"])
         if cfg.family == "vlm":
-            mp = params["mm_proj"]
-            img = batch["images"].to(x.dtype)
+            mp = _local_small(params["mm_proj"])
+            img = shd.local(batch["images"], "batch", None, None).to(x.dtype)
             img = torch.tanh(img @ mp["w1"] + mp["b1"]) @ mp["w2"] + mp["b2"]
             x = torch.cat([img, x], dim=1)
         pos = torch.arange(x.shape[1], device=x.device)
@@ -253,9 +376,21 @@ class DecoderLM:
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), total
 
     def _logits(self, params, x):
+        """Logits over the vocab; on a mesh over this rank's vocab block."""
         if self.cfg.tie_embeddings:
-            return L.unembed(x, params["embed"], tied=True)
-        return L.unembed(x, params["head"], tied=False)
+            return L.unembed(x, shd.local(params["embed"], "vocab", "embed"),
+                             tied=True)
+        return L.unembed(x, shd.local(params["head"], "embed", "vocab"),
+                         tied=False)
+
+    def _place_logits(self, batch, logits):
+        """On a mesh, this rank's logits block placed ("batch", "seq",
+        "vocab"); the logits themselves without one."""
+        if shd.device_mesh() is None:
+            return logits
+        shape = (batch["tokens"].shape[0],) + tuple(logits.shape[1:-1]) + (
+            self.vp,)
+        return shd.place_local(logits, ("batch", "seq", "vocab"), shape)
 
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token CE (over ``loss_mask`` when the batch has one;
@@ -303,29 +438,59 @@ class DecoderLM:
         cfg = self.cfg
         dt = _dtype(cfg.dtype)
         x, pos = self._embed_inputs(params, batch)
+        be = self._batch_entry(batch)
         ks, vs = [], []
-        for lp in pm.unstack(params["layers"], cfg.num_layers):
-            x, (k, v), _ = self._layer(lp, x, pos)
+        for lp in self._layers(params):
+            x, (k, v), _ = self._layer(lp, x, pos, batch_entry=be)
             ks.append(k.to(dt))
             vs.append(v.to(dt))
-        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        x = L.rmsnorm(x, shd.local(params["final_norm"], "embed"),
+                      cfg.norm_eps)
         logits = self._logits(params, x[:, -1:, :])
         cache = {"k": pad_cache(torch.stack(ks), cache_len),
                  "v": pad_cache(torch.stack(vs), cache_len),
                  "pos": torch.full((), x.shape[1] - 1, dtype=torch.int32,
                                    device=x.device)}
-        return logits, cache
+        if shd.device_mesh() is not None:
+            # this rank keeps its kv_seq slice of its batch block's cache
+            B = batch["tokens"].shape[0]
+            for name in ("k", "v"):
+                c = cache[name]
+                shape = (c.shape[0], B) + tuple(c.shape[2:])
+                sspec = shd.resolve_for_shape(("kv_seq",), (shape[2],))[0]
+                i, n = shd.entry_index(sspec)
+                t = shape[2] // n
+                cache[name] = shd.place_local(
+                    c.narrow(2, i * t, t).contiguous(), CACHE_LOGICAL, shape)
+            cache["pos"] = shd.place_local(cache["pos"], (), ())
+        return self._place_logits(batch, logits), cache
 
-    def _decode_attention(self, lp, x, pos, kc, vc):
-        """x: (B,1,d); kc/vc: (B,T,kv,D), updated in place."""
+    def _decode_attention(self, lp, x, pos, kc, vc, seq_entry=None):
+        """x: (B,1,d); kc/vc: (B,T,kv,D), updated in place; on a mesh
+        this rank's slice of a cache sharded on T over ``seq_entry``."""
         cfg = self.cfg
-        q, k, v = L._project_qkv(lp, x, cfg, pos[None])
+        if shd.device_mesh() is None:
+            q, k, v = L._project_qkv(lp, x, cfg, pos[None])
+        else:
+            if shd.spec(lp["wq"], "attn_din", "heads", "head_dim")[1]:
+                raise ValueError("decode on a mesh takes the heads whole "
+                                 "(registry.make_rules' decode rules)")
+            q, k, v = _qkv_mesh(lp, x)
+            q, k, v = L._finish_qkv(_local_small(lp), q, k, v, cfg, pos[None])
         q, k, v = q[:, 0], k[:, 0], v[:, 0]          # (B,H,D)/(B,kv,D)
-        o, kc, vc = L.decode_attention_unsharded(q, kc, vc, k, v, pos)
+        if seq_entry is not None:
+            o, kc, vc = L.sharded_decode_attention(q, kc, vc, k, v, pos,
+                                                   seq_entry)
+        else:
+            o, kc, vc = L.decode_attention_unsharded(q, kc, vc, k, v, pos)
         mask = L.head_mask(cfg, o.dtype, o.device)
         if mask is not None:
             o = o * mask[None, :, None]
-        out = (o.flatten(-2) @ lp["wo"].flatten(0, 1))[:, None, :]
+        if shd.device_mesh() is None:
+            out = (o.flatten(-2) @ lp["wo"].flatten(0, 1))[:, None, :]
+        else:
+            out = L.mesh_out(o, lp["wo"],
+                             ("heads", "head_dim", "attn_dout"))[:, None, :]
         return out, kc, vc
 
     def decode_step(self, params, cache, batch):
@@ -335,18 +500,34 @@ class DecoderLM:
         and returns (logits, {"k", "v", "pos"}) with the same buffers and
         the advanced device ``pos``."""
         cfg = self.cfg
-        x = L.embed_lookup(params["embed"], batch["tokens"])
-        pos = cache["pos"] + 1
-        ks, vs = cache["k"], cache["v"]
-        for i, lp in enumerate(pm.unstack(params["layers"],
-                                          cfg.num_layers)):
-            h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            h, _, _ = self._decode_attention(lp["attn"], h, pos, ks[i], vs[i])
+        mesh = shd.device_mesh()
+        if mesh is None:
+            x = L.embed_lookup(params["embed"], batch["tokens"])
+        else:
+            x = L.mesh_embed(params["embed"],
+                             shd.local(batch["tokens"], "batch", None))
+        pos = shd.local(cache["pos"]) + 1
+        ks = shd.local(cache["k"], *CACHE_LOGICAL)
+        vs = shd.local(cache["v"], *CACHE_LOGICAL)
+        se = (None if mesh is None else
+              shd.resolve_for_shape(("kv_seq",), (cache["k"].shape[2],))[0])
+        be = self._batch_entry(batch)
+        for i, lp in enumerate(self._layers(params)):
+            h = L.rmsnorm(x, shd.local(lp["ln1"], "embed"), cfg.norm_eps)
+            h, _, _ = self._decode_attention(lp["attn"], h, pos, ks[i], vs[i],
+                                             se)
             x = x + h
-            h2, _ = self._ffn(lp, L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+            h2, _ = self._ffn(lp, L.rmsnorm(x, shd.local(lp["ln2"], "embed"),
+                                            cfg.norm_eps), be)
             x = x + h2
-        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        logits = self._logits(params, x)
+        x = L.rmsnorm(x, shd.local(params["final_norm"], "embed"),
+                      cfg.norm_eps)
+        logits = self._place_logits(batch, self._logits(params, x))
+        if mesh is not None:
+            ks, vs = (c if isinstance(c, DTensor) else shd.place_local(
+                loc, CACHE_LOGICAL, c.shape)
+                for c, loc in ((cache["k"], ks), (cache["v"], vs)))
+            pos = shd.place_local(pos, (), ())
         return logits, {"k": ks, "v": vs, "pos": pos}
 
     # ------------------------------------------------------------- specs
@@ -365,6 +546,14 @@ class DecoderLM:
                                      _dtype(cfg.dtype))
         return spec
 
+    def input_logical(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        out = {"tokens": ("batch", None)}
+        if shape.kind == "train":
+            out["labels"] = ("batch", None)
+        if self.cfg.family == "vlm" and shape.kind in ("train", "prefill"):
+            out["images"] = ("batch", None, None)
+        return out
+
     def cache_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         B, T = shape.global_batch, shape.seq_len
@@ -372,6 +561,9 @@ class DecoderLM:
         dt = _dtype(cfg.dtype)
         return {"k": pm.meta(kv, dt), "v": pm.meta(kv, dt),
                 "pos": pm.meta((), torch.int32)}
+
+    def cache_logical(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        return {"k": CACHE_LOGICAL, "v": CACHE_LOGICAL, "pos": ()}
 
     def init_cache(self, shape: ShapeConfig,
                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:

@@ -26,7 +26,8 @@ to q's, as ``flash_attention_jnp`` returns q's dtype.  The caches hold
 reference) runs all three attentions through the differentiable
 ``layers.flash_attention_blocked``, which takes the mixed dtypes as the
 reference's jnp attention does; each encoder and decoder layer is
-checkpointed as ``cfg.remat`` says.
+checkpointed as ``cfg.remat`` says.  The mesh branches (context
+parallelism in the encoder) wait for ROADMAP Queue 1 item 8c.
 """
 from __future__ import annotations
 

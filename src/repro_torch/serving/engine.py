@@ -4,7 +4,9 @@ paper's sequential (lock-step) semantics, in PyTorch on the device.
 The counterpart of ``repro.serving.engine``: the request and result
 records; ``DLRMServingEngine``, which packs requests into fixed-size
 batches (-1 padded), splits an oversized request across batches, and
-scores each batch in one step; and ``LMServingEngine``, greedy
+scores each batch in one step (on a mesh: every rank packs the same
+batches, scores its block under ``use_mesh`` and gathers the scores);
+and ``LMServingEngine``, greedy
 prefill + decode generation for the LM archs (decoder LMs and
 whisper).
 """
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, require_on, resolve_device
+from repro_torch.distributed import sharding as shd
 
 
 @dataclass
@@ -37,17 +40,23 @@ class Result:
 
 
 class DLRMServingEngine:
-    """Batched CTR scoring over a DLRM on ``device`` (default: the CUDA
-    card); ``params`` must already lie there."""
+    """Batched CTR scoring over a (possibly sharded) DLRM on ``device``
+    (default: the CUDA card); ``params`` must already lie there.  With a
+    ``mesh`` (a DeviceMesh; ``rules`` from ``registry.make_rules``) every
+    rank of it serves the same requests: the params are replicated plain
+    tensors or DTensors (``elastic.reshard_tree``)."""
 
     def __init__(self, model, params, batch_size: int = 128,
-                 use_kernel: bool = False, device: DeviceLike = None):
+                 use_kernel: bool = False, device: DeviceLike = None,
+                 mesh=None, rules=None):
         self.device = resolve_device(device)
-        require_on(params["embed"], self.device)
+        require_on(shd.local_tensor(params["embed"]), self.device)
         self.model = model
         self.params = params
         self.batch_size = batch_size
         self.use_kernel = use_kernel
+        self.mesh = mesh
+        self.rules = rules
 
     def _pad_concat(self, reqs: List[Request]) -> Dict[str, torch.Tensor]:
         dense = np.concatenate([r.payload["dense"] for r in reqs])
@@ -60,8 +69,13 @@ class DLRMServingEngine:
                 "indices": torch.from_numpy(idx).to(self.device)}
 
     def _step(self, batch: Dict[str, torch.Tensor]) -> np.ndarray:
-        scores = self.model.serve_step(self.params, batch,
-                                       use_kernel=self.use_kernel)
+        if self.mesh is None:
+            scores = self.model.serve_step(self.params, batch,
+                                           use_kernel=self.use_kernel)
+        else:
+            with shd.use_mesh(self.mesh, self.rules):
+                scores = shd.full(self.model.serve_step(
+                    self.params, batch, use_kernel=self.use_kernel))
         return scores.cpu().numpy()
 
     def serve(self, requests: List[Request]) -> List[Result]:

@@ -9,8 +9,8 @@ and a msgpack sidecar ``latest`` ({"step", "file"}).  Saves are atomic
 a crash mid-save never corrupts the restore state.  A checkpoint that
 either package wrote restores in the other.
 
-``restore_resharded`` (a restore onto another mesh) waits for the mesh
-(ROADMAP Queue 1 item 8).
+``restore_resharded`` (a restore onto another mesh) waits for the
+training half of the mesh (ROADMAP Queue 1 item 8b).
 """
 from __future__ import annotations
 

@@ -18,8 +18,8 @@ Differences from the reference, each deliberate:
   keys sorted), where the port's trees keep insertion order, so that the
   clip factor is the reference's in fp32.
 
-``state_specs`` (ZeRO-1 sharding of the state) waits for the mesh
-(ROADMAP Queue 1 item 8).
+``state_specs`` (ZeRO-1 sharding of the state) waits for the training
+half of the mesh (ROADMAP Queue 1 item 8b).
 """
 from __future__ import annotations
 

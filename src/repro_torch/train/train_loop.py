@@ -10,7 +10,7 @@ differentiates, and ``optimizer.apply_updates`` then writes the leaves in
 place under ``torch.no_grad()`` (the counterpart of ``donate_argnums``).
 
 ``make_sharded_train_step`` (jit with the mesh's shardings) waits for
-the mesh (ROADMAP Queue 1 item 8).
+the training half of the mesh (ROADMAP Queue 1 item 8b).
 """
 from __future__ import annotations
 

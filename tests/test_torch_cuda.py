@@ -29,10 +29,18 @@ an operand that requires grad (the kernels have no backward) and
 launches under ``torch.no_grad``; a reduced fp32 train step on the card
 against the CPU: loss and gradient norm within 1e-5 relative,
 parameters within 1e-5 after an SGD step at lr 1, no kernel launch.
+Two gloo ranks on the card hold ``sharded_decode_attention`` against
+``decode_attention_unsharded`` on the same cache (D 64 and 112, fp32
+and bf16, ``pos`` in each shard and past T): the new row written on its
+owner only, bitwise; the output within 1e-4 in fp32 and two bf16 steps
+in bf16.
 """
 import ctypes
 import dataclasses
 import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -677,3 +685,103 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
     for a, b in zip(tree_leaves(dev_params), tree_leaves(cpu_params)):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-5,
                                    rtol=0)
+
+
+#: (B, H, Hkv, T, D) x pos: in the first shard, in the second, past T
+SHARDED_DECODE = [((2, 9, 3, 256, 64), (10, 130, 1000)),
+                  ((2, 4, 2, 200, 112), (0, 150, 250))]
+
+SHARDED_DECODE_RANK = r"""
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, d = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="file://" + os.path.join(
+    d, "store"), rank=rank, world_size=2)
+try:
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    mesh = make_host_mesh(2)
+    data = np.load(os.path.join(d, "inputs.npz"))
+    out = {}
+    with shd.use_mesh(mesh, None):
+        for key in sorted({k.rsplit("/", 1)[0] for k in data.files}):
+            dtype = torch.bfloat16 if "bfloat16" in key else torch.float32
+            t = {n: torch.from_numpy(data[f"{key}/{n}"]).cuda().to(dtype)
+                 for n in ("q", "kc", "vc", "k", "v")}
+            n = t["kc"].shape[1] // 2
+            kc = t["kc"][:, rank * n:(rank + 1) * n].clone()
+            vc = t["vc"][:, rank * n:(rank + 1) * n].clone()
+            pos = torch.tensor(int(data[f"{key}/pos"]), dtype=torch.int32,
+                               device="cuda")
+            o, kc, vc = L.sharded_decode_attention(t["q"], kc, vc, t["k"],
+                                                   t["v"], pos, "model")
+            torch.cuda.synchronize()
+            out[f"{key}/o"] = o.float().cpu().numpy()
+            out[f"{key}/kc"] = kc.float().cpu().numpy()
+            out[f"{key}/vc"] = vc.float().cpu().numpy()
+    np.savez(os.path.join(d, f"rank-{rank}.npz"), **out)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_sharded_decode_on_card_matches_unsharded(cuda, tmp_path):
+    """Two gloo ranks on the card, each with half the sequence of one
+    cache: the sharded decode (the kernel on each slice at its
+    ``kv_offset``, the partials combined over ``model``) against the
+    unsharded one on the whole cache."""
+    from repro_torch.models import layers as L
+
+    rng = np.random.RandomState(11)
+    inputs, want = {}, {}
+    for (B, H, Hkv, T, D), poss in SHARDED_DECODE:
+        for pos in poss:
+            for name, dtype in (("float32", torch.float32),
+                                ("bfloat16", torch.bfloat16)):
+                key = f"{D}-{pos}-{name}"
+                arrs = {"q": rng.randn(B, H, D), "kc": rng.randn(B, T, Hkv, D),
+                        "vc": rng.randn(B, T, Hkv, D), "k": rng.randn(B, Hkv, D),
+                        "v": rng.randn(B, Hkv, D)}
+                for n, a in arrs.items():
+                    inputs[f"{key}/{n}"] = a.astype(np.float32)
+                inputs[f"{key}/pos"] = np.array(pos)
+                t = {n: torch.from_numpy(a.astype(np.float32)).to(cuda, dtype)
+                     for n, a in arrs.items()}
+                p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+                with torch.no_grad():
+                    o, kc, vc = L.decode_attention_unsharded(
+                        t["q"], t["kc"], t["vc"], t["k"], t["v"], p)
+                want[key] = (o.float().cpu(), kc.float().cpu(),
+                             vc.float().cpu(), dtype)
+    np.savez(tmp_path / "inputs.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]
+                                          / "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", SHARDED_DECODE_RANK,
+                               str(r), str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        for r, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=120)
+            assert proc.returncode == 0, f"rank {r}:\n{err[-3000:]}"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks = [np.load(tmp_path / f"rank-{r}.npz") for r in range(2)]
+    for key, (o, kc, vc, dtype) in want.items():
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+        for r, res in enumerate(ranks):
+            n = kc.shape[1] // 2
+            np.testing.assert_array_equal(res[f"{key}/kc"],
+                                          kc[:, r * n:(r + 1) * n].numpy())
+            np.testing.assert_array_equal(res[f"{key}/vc"],
+                                          vc[:, r * n:(r + 1) * n].numpy())
+            np.testing.assert_allclose(res[f"{key}/o"], o.numpy(), rtol=tol,
+                                       atol=tol)

@@ -54,7 +54,10 @@ def test_port_imports_load_no_jax_module():
             " repro_torch.models.rwkv6, repro_torch.core.sharding,"
             " repro_torch.core.allocator, repro_torch.core.tco,"
             " repro_torch.launch.train, repro_torch.train.train_loop,"
-            " repro_torch.train.optimizer, repro_torch.train.checkpoint\n"
+            " repro_torch.train.optimizer, repro_torch.train.checkpoint,"
+            " repro_torch.distributed.sharding,"
+            " repro_torch.distributed.elastic, repro_torch.launch.mesh,"
+            " repro_torch.launch.steps\n"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -132,5 +135,15 @@ def test_train_entry_points_without_device_raise(no_cuda):
         lambda: model.init_cache(SHAPES["decode_32k"]),
     ]
     for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_mesh_entry_points_without_device_raise(no_cuda):
+    from repro_torch.distributed.elastic import healthy_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    for call in (lambda: make_host_mesh(2),
+                 lambda: healthy_mesh({"model": 2}, devices=[0, 1])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
