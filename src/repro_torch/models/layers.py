@@ -110,12 +110,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU, with the silu in fp32 cast back to x's dtype."""
+def mlp_hidden(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU's hidden activations, the silu in fp32 cast back to x's
+    dtype."""
     gate = matmul(x, p["wi_gate"])
     up = matmul(x, p["wi_up"])
-    h = F.silu(gate.float()).to(x.dtype) * up
-    return matmul(h, p["wo"])
+    return F.silu(gate.float()).to(x.dtype) * up
+
+
+def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU."""
+    return matmul(mlp_hidden(p, x), p["wo"])
 
 
 # ---------------------------------------------------------------- blocks
@@ -324,31 +329,34 @@ def use_context_parallel(mesh, seq_len: int, axis: str = "model") -> bool:
 def batch_pspec_entry(batch: int, mesh) -> shd.Entry:
     """The entry for the batch dim under the active 'batch' rule,
     dropping axes the batch size cannot divide (e.g. global_batch=1)."""
-    entry = shd.resolve(("batch",))[0]
+    return shd.resolve_for_shape(("batch",), (batch,))[0]
+
+
+def psum_matmul(x: torch.Tensor, w: torch.Tensor,
+                entry: shd.Entry) -> torch.Tensor:
+    """``x @ w`` whose contracting dim is sharded over ``entry``: this
+    rank's partial product in fp32 (bf16 operands are exact there),
+    summed over the axes and rounded once to the operands' dtype, as one
+    device's GEMM rounds its fp32 accumulator once.  With ``entry`` None
+    (the dim whole) it is :func:`matmul`."""
     if entry is None:
-        return None
-    sizes = shd.mesh_shape(mesh)
-    axes = (entry,) if isinstance(entry, str) else tuple(entry)
-    keep = []
-    prod = 1
-    for a in axes:
-        if batch % (prod * sizes[a]) == 0:
-            keep.append(a)
-            prod *= sizes[a]
-    if not keep:
-        return None
-    return keep[0] if len(keep) == 1 else tuple(keep)
+        return matmul(x, w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return shd.psum(matmul(x.float(), w.float()), entry).to(dt)
 
 
 def mesh_heads(x: torch.Tensor, w, names) -> torch.Tensor:
     """x (..., d) whole @ w (d, h, k) under ``names`` -> (..., h', k):
     the heads of this rank's block of ``w``.  A contracting dim sharded
-    over an axis contracts this rank's slice of x, then a psum."""
+    over an axis contracts this rank's slice of x, then a psum
+    (:func:`psum_matmul`)."""
     din = shd.spec(w, *names)[0]
     wl = shd.local(w, *names)
     i, n = shd.entry_index(din)
     step = x.shape[-1] // n
-    return shd.psum(_heads(x.narrow(-1, i * step, step), wl), din)
+    d, h, k = wl.shape
+    return psum_matmul(x.narrow(-1, i * step, step), wl.reshape(d, h * k),
+                       din).unflatten(-1, (h, k))
 
 
 def mesh_out(o: torch.Tensor, w, names) -> torch.Tensor:
@@ -358,7 +366,7 @@ def mesh_out(o: torch.Tensor, w, names) -> torch.Tensor:
     sharded output dim a gather."""
     hspec, _, dspec = shd.spec(w, *names)
     wl = shd.local(w, *names)
-    out = shd.psum(o.flatten(-2) @ wl.flatten(0, 1), hspec)
+    out = psum_matmul(o.flatten(-2), wl.flatten(0, 1), hspec)
     return shd.all_gather(out, dspec, -1)
 
 
@@ -367,9 +375,9 @@ def mesh_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     ``wo``, then a psum over the ``ffn`` axes (Megatron TP)."""
     fspec = shd.spec(p["wi_gate"], "embed", "ffn")[1]
     lp = {"wi_gate": shd.local(p["wi_gate"], "embed", "ffn"),
-          "wi_up": shd.local(p["wi_up"], "embed", "ffn"),
-          "wo": shd.local(p["wo"], "ffn", "embed")}
-    return shd.psum(mlp_apply(lp, x), fspec)
+          "wi_up": shd.local(p["wi_up"], "embed", "ffn")}
+    return psum_matmul(mlp_hidden(lp, x), shd.local(p["wo"], "ffn", "embed"),
+                       fspec)
 
 
 def mesh_embed(table, tokens: torch.Tensor) -> torch.Tensor:

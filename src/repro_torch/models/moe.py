@@ -37,9 +37,15 @@ axis): experts shard over ``model``, each rank dispatches its block of
 tokens (the reference's batch sharding of the (B*S) tokens) to its own
 ``E_pad/ep`` experts at ``e_off``, with the per-shard capacity rounded up
 to a multiple of 8 as the reference rounds it, and one all-reduce SUM
-over ``model`` combines the ranks' outputs: only (T, d) crosses, never
-(T, k, d) per-expert outputs.  Under a mesh without EP every rank
-dispatches every token, as the reference's global dispatch does.
+over ``model`` brings each rank every (token, j) pair's weighted output:
+a pair's term is non-zero on the rank of its expert only, so the sum is
+exact, and every rank then combines a token's terms in one device's
+order and dtype.  The reference psums each rank's combined (T, d)
+instead; in bf16 that rounds each rank's share before the sum, and the
+routing of the next layers flips at near-ties.  So (T, k, d) crosses,
+k times the bytes of the reference's Fsum.  Under a mesh without EP
+every rank dispatches every token, as the reference's global dispatch
+does.
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.models.layers import batch_pspec_entry
+from repro_torch.models.layers import batch_pspec_entry, psum_matmul
 from repro_torch.models.params import Spec
 
 
@@ -128,15 +134,23 @@ def dispatch(ids: torch.Tensor, Ep: int,
 
 def _moe_local(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
                wg: torch.Tensor, wu: torch.Tensor, wo: torch.Tensor, *,
-               capacity: int, cfg, e_off: int = 0) -> torch.Tensor:
+               capacity: int, cfg, e_off: int = 0,
+               axis: shd.Entry = None) -> torch.Tensor:
     """Dispatch the tokens to the capacity buffers of the experts
     [e_off, e_off + E) that ``wg``/``wu``/``wo`` hold (E = their leading
     dim; all of them with no mesh), compute, and combine each token's
-    kept slots on these experts in ascending slot order."""
+    kept slots in ascending slot order.  Under EP (``axis``, the experts'
+    mesh axis) each pair's weighted output is summed over the axis
+    first, so that every rank combines every expert's terms."""
     T, d = x2d.shape
     E = wg.shape[0]
     C = capacity
     slot, keep = dispatch(ids, cfg.moe.padded_experts, C)
+    # the combine's order: a token's slots ascending, as the reference's
+    # scatter-add visits them; taken before the slots turn local, so that
+    # every rank of EP has the same order
+    slot, order = torch.sort(slot, dim=-1)
+    keep, ids, w = (t.gather(-1, order) for t in (keep, ids, w))
     if E != cfg.moe.padded_experts:       # a rank's experts under EP
         keep = keep & (ids >= e_off) & (ids < e_off + E)
         slot = torch.where(keep, slot - e_off * C, E * C)
@@ -150,13 +164,14 @@ def _moe_local(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
     xbuf = xpad[tok_of[:E * C]].reshape(E, C, d)
     out = _expert_compute(xbuf, wg, wu, wo).reshape(E * C, d)
     out = torch.cat([out, out.new_zeros(1, d)])
-    # the combine: a token's slots in ascending order, as the
-    # reference's scatter-add visits them; a dropped pair adds zero
-    slot, order = torch.sort(slot, dim=-1)
-    wk = torch.where(keep, w, torch.zeros_like(w)).gather(-1, order)
-    y = out[slot[:, 0]] * wk[:, :1]
-    for j in range(1, slot.shape[1]):
-        y = y + out[slot[:, j]] * wk[:, j:j + 1]
+    # a dropped pair (and another rank's) adds an exact zero
+    wk = torch.where(keep, w, torch.zeros_like(w))
+    terms = [out[slot[:, j]] * wk[:, j:j + 1] for j in range(slot.shape[1])]
+    if axis is not None:
+        terms = shd.psum(torch.stack(terms, 1), axis).unbind(1)
+    y = terms[0]
+    for t in terms[1:]:
+        y = y + t
     return y
 
 
@@ -192,7 +207,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, *,
 def _shared(s: dict, x2d: torch.Tensor, dtype: torch.dtype,
             mesh: bool) -> torch.Tensor:
     """The shared expert's gated output; on a mesh its ``ffn`` dim is
-    tensor-parallel (this rank's columns, then a psum)."""
+    tensor-parallel (this rank's columns, then a psum in fp32:
+    ``layers.psum_matmul``)."""
     if mesh:
         fspec = shd.spec(s["wi_gate"], "embed", "ffn")[1]
         s = {"wi_gate": shd.local(s["wi_gate"], "embed", "ffn"),
@@ -202,9 +218,7 @@ def _shared(s: dict, x2d: torch.Tensor, dtype: torch.dtype,
     g = x2d @ s["wi_gate"]
     u = x2d @ s["wi_up"]
     h = F.silu(g.float()).to(x2d.dtype) * u
-    sh = h @ s["wo"]
-    if mesh:
-        sh = shd.psum(sh, fspec)
+    sh = psum_matmul(h, s["wo"], fspec) if mesh else h @ s["wo"]
     gate = torch.sigmoid(x2d.float() @ s["gate"].float())
     return sh * gate.to(dtype)
 
@@ -224,8 +238,6 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg, capacity_factor: float,
     """The mesh branch: expert parallelism over ``model`` when the
     experts rule maps there and the padded experts divide it, else every
     rank dispatches every token to every expert."""
-    from repro_torch.models.layers import batch_pspec_entry
-
     B, S, d = x.shape
     m = cfg.moe
     mesh = shd.device_mesh()
@@ -246,8 +258,8 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg, capacity_factor: float,
         cap = max(8, int((t_loc * m.top_k / m.num_experts) * capacity_factor))
         cap = -(-cap // 8) * 8
         e_off = shd.entry_index("model")[0] * wg.shape[0]
-        y = shd.psum(_moe_local(x2d, w, ids, wg, wu, wo, capacity=cap,
-                                cfg=cfg, e_off=e_off), "model")
+        y = _moe_local(x2d, w, ids, wg, wu, wo, capacity=cap, cfg=cfg,
+                       e_off=e_off, axis="model")
     else:
         cap = max(8, int((t_loc * m.top_k / m.num_experts) * capacity_factor))
         y = _moe_local(x2d, w, ids, wg, wu, wo, capacity=cap, cfg=cfg)

@@ -140,8 +140,9 @@ def _local_small(p: dict) -> dict:
 
 def _qkv_mesh(lp: dict, x: torch.Tensor):
     """Decode's q, k, v on a mesh: the weights' d_model dim is sharded
-    (``attn_din``), so each rank contracts its slice of x and one psum
-    sums the three partials."""
+    (``attn_din``), so each rank contracts its slice of x against the
+    three weights side by side and one psum sums the partials
+    (``layers.psum_matmul``)."""
     names = {"wq": ("attn_din", "heads", "head_dim"),
              "wk": ("attn_din", "kv_heads", "head_dim"),
              "wv": ("attn_din", "kv_heads", "head_dim")}
@@ -149,9 +150,10 @@ def _qkv_mesh(lp: dict, x: torch.Tensor):
     i, n = shd.entry_index(din)
     step = x.shape[-1] // n
     xs = x.narrow(-1, i * step, step)
-    parts = [L._heads(xs, shd.local(lp[w], *names[w])) for w in names]
-    sizes = [t.shape[-2] for t in parts]
-    out = shd.psum(torch.cat(parts, dim=-2), din)
+    ws = [shd.local(lp[w], *names[w]) for w in names]
+    sizes = [w.shape[1] for w in ws]
+    cat = torch.cat([w.flatten(1) for w in ws], dim=-1)
+    out = L.psum_matmul(xs, cat, din).unflatten(-1, (sum(sizes), -1))
     return out.split(sizes, dim=-2)
 
 

@@ -409,14 +409,32 @@ try:
                       tree("qwen2-moe-a2.7b")["layers"]["moe"])
         x = torch.from_numpy(inputs["moe_x"])
         rules = registry.make_rules(mcfg, mesh, "prefill")
-        with shd.use_mesh(mesh, rules):
-            be = batch_pspec_entry(x.shape[0], mesh)
-            y, _ = moe_mod.moe_apply(mp, shd.local(x, "batch", None, None),
-                                     mcfg, batch_entry=be)
+        # the ids the EP branch dispatches on this rank, and the experts
+        # it computes, recorded where moe_apply uses them
+        dispatch, compute, seen = (moe_mod.dispatch, moe_mod._expert_compute,
+                                   {})
+
+        def recorded_dispatch(ids, Ep, capacity):
+            seen["ids"] = ids
+            return dispatch(ids, Ep, capacity)
+
+        def recorded_compute(xbuf, wg, wu, wo):
+            seen["experts"] = xbuf.shape[0]
+            return compute(xbuf, wg, wu, wo)
+
+        moe_mod.dispatch = recorded_dispatch
+        moe_mod._expert_compute = recorded_compute
+        try:
+            with shd.use_mesh(mesh, rules):
+                be = batch_pspec_entry(x.shape[0], mesh)
+                y, _ = moe_mod.moe_apply(
+                    mp, shd.local(x, "batch", None, None), mcfg,
+                    batch_entry=be)
+        finally:
+            moe_mod.dispatch, moe_mod._expert_compute = dispatch, compute
         out[f"{name}/moe/y"] = y.numpy()
-        _, ids, _ = moe_mod._route(x.reshape(-1, x.shape[-1]), mp["router"],
-                                   mcfg)
-        out[f"{name}/moe/ids"] = ids.numpy()
+        out[f"{name}/moe/ids"] = seen["ids"].numpy()
+        out[f"{name}/moe/experts"] = np.array(seen["experts"])
 
         cfg = configs.get_reduced("rm1")
         model = registry.build(cfg)
@@ -590,15 +608,20 @@ def test_decode_steps_seq_sharded(mesh_runs, arch, mesh):
 @pytest.mark.parametrize("mesh", list(RUN_MESHES))
 def test_moe_expert_parallel_routes(mesh_runs, mesh):
     """The MoE FFN under prefill rules (EP over model, tokens over
-    data): route ids equal, each rank's token block within 1e-5."""
+    data): the ids each rank's EP dispatch routes are the reference's
+    for its block of tokens, it computes its E_pad/ep experts, and each
+    rank's token block of the output is within 1e-5."""
     ref, ranks = mesh_runs
     shape = RUN_MESHES[mesh]
+    experts = tconfigs.get_reduced("qwen2-moe-a2.7b").moe.padded_experts
     for res in ranks:
-        np.testing.assert_array_equal(res[f"{mesh}/moe/ids"],
-                                      ref[mesh]["moe/ids"])
-        _close(res[f"{mesh}/moe/y"], _block(ref[mesh]["moe/y"],
-                                            res[f"{mesh}/coord"], shape,
-                                            {0: 0}))
+        coord = res[f"{mesh}/coord"]
+        np.testing.assert_array_equal(
+            res[f"{mesh}/moe/ids"],
+            _block(ref[mesh]["moe/ids"], coord, shape, {0: 0}))
+        assert int(res[f"{mesh}/moe/experts"]) == experts // shape[1]
+        _close(res[f"{mesh}/moe/y"], _block(ref[mesh]["moe/y"], coord,
+                                            shape, {0: 0}))
 
 
 @pytest.mark.parametrize("placement", ["replicated", "resharded"])
