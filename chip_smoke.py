@@ -226,7 +226,46 @@ with a non-zero exit and no result line):
    decode ms a step, tokens/s, peak memory and the collectives' share
    of a decode step's wall (gloo stages through host memory: these are
    not NVLink's times); the card's memory in use, the phase's time.  A
-   rank that fails fails the phase through its exit code.
+   rank that fails fails the phase through its exit code;
+16. mesh-train: training on the same kind of mesh (4 gloo rank
+   processes on the card, one spawn), each case held against one
+   device's run of it from the same weights, computed by the parent
+   before the ranks start (gradients kept in files on the host, read
+   by each rank for its own blocks).  (a) smollm-135m at its published
+   widths, nothing cut, bf16, on (data 2, model 2) (9 heads: FSDP over
+   data, context parallelism and Megatron over model, the
+   vocab-parallel embedding and CE, ZeRO-1 Adam over data) through
+   ``run_train_loop(mesh=, rules=)``: batch 8 x seq 1024, 8 steps (cut
+   from ``[train]``'s 2048 and 40 for the phase's time), a checkpoint
+   every 3, a fault at step 5: every logged loss within 2% of one
+   device's loop, the loss falls, no kernel launch; (b) its last
+   checkpoint restored by ``elastic_restore`` onto
+   ``healthy_mesh({"model": 2}, 0.4)`` (ranks 0 and 1 on (1, 2)): the
+   params and state gathered whole bitwise equal to the file's arrays,
+   and one step there within 2% of one device's step from the same
+   checkpoint on the same batch; (c) fp32 copies at full width, 2
+   layers, on (2, 2): smollm at batch 4 x 256 and qwen2-moe-a2.7b at
+   batch 2 x 256, capacity factor 8.0 (head-TP, EP): the loss within
+   1e-5 relative, the MoE aux within 1e-6, every leaf's gradient within
+   rtol 1e-4 and 1e-6 + 1e-4 of its largest magnitude, each rank's
+   blocks (so every element of every leaf, and every replica) against
+   the same blocks of one device's, since gathering 7 GB a rank through
+   gloo would take most of the phase; after one Adam step, the params
+   and both moments bitwise one device's update of this rank's own
+   gradient (ZeRO-1 is exact) and within 1e-6 of the leaf's largest
+   magnitude of one device's step, plus what the measured gradient
+   difference moves them by (m by (1 - b1) dg, v by (1 - b2) dg
+   (|g| + |g'|), a param by at most lr dg / eps: Adam's first update
+   amplifies a gradient that differs in its last bits); (d) RM1 V0,
+   rows cut to 10,000 as in ``[train]``, on (2, 2) (``table_shard``
+   over model, ``table_rows`` over data), Adagrad, batch 64, 3 steps:
+   each rank's block of the bank's gradient within (c)'s tolerance,
+   every loss within 1e-5 relative.  Each rank prints its step ms
+   (median and spread), tokens/s or samples/s, peak memory and the
+   card's, the collectives' share of one more step's wall (host time
+   inside ``sharding._reduce``/``_gather``, each from a synchronised
+   card), the gradient all-reduce's payload a step, and the save and
+   restore times.
 
 All timing lives here, never in ``src/`` (the repo's linter bans host
 clocks there).  The line before the last is ``{"kernels": [...]}``; the
@@ -2438,12 +2477,13 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def run_ranks(jobs):
+def run_ranks(jobs, deadline_s: float = 2 * MESH_TIMEOUT_S):
     """Spawns the ranks with ``jobs``, a list of (job, payload) (CUDA
     tensors in a payload pass through CUDA IPC: each rank clones only
     its own blocks), collects every rank's results and waits for its
-    exit; a rank that dies, or exits non-zero, fails the phase.  Returns
-    (per job, the results by rank; wall s)."""
+    exit; a rank that dies, or exits non-zero, or a spawn still running
+    after ``deadline_s``, fails the phase.  Returns (per job, the results
+    by rank; wall s)."""
     import queue
     import tempfile
 
@@ -2458,7 +2498,7 @@ def run_ranks(jobs):
             p.start()
         try:
             results = {}
-            deadline = time.monotonic() + 2 * MESH_TIMEOUT_S
+            deadline = time.monotonic() + deadline_s
             while len(results) < MESH_WORLD:
                 try:
                     rank, res = q.get(timeout=5)
@@ -2924,6 +2964,767 @@ def mesh_phase(dev, card, reqs, scores, rows) -> None:
     log(f"[mesh] phase took {time.perf_counter() - t0:.1f} s; {card}")
 
 
+# ---------------------------------------------------------- mesh-train
+#: [mesh-train] (a): smollm-135m's loop on (data 2, model 2): batch x
+#: seq, steps, checkpoint period, the step whose hook raises once
+MT_BATCH, MT_SEQ, MT_STEPS, MT_CKPT_EVERY, MT_FAULT_AT = 8, 1024, 8, 3, 5
+#: each logged loss of the mesh against one device's (relative), and (b)
+MT_LOSS_RTOL = 0.02
+#: (c) the fp32 copies at full width: arch -> (layers, batch, seq)
+MT_COPIES = {"smollm-135m": (2, 4, 256), "qwen2-moe-a2.7b": (2, 2, 256)}
+MT_COPY_LOSS_RTOL = 1e-5       # the loss against one device, relative
+MT_GRAD_RTOL = 1e-4            # gradients: rtol, and atol 1e-6 + 1e-4 of
+MT_GRAD_ATOL = 1e-6            # the leaf's largest magnitude ([train]'s)
+MT_AUX_ATOL = 1e-6             # the MoE aux loss
+#: params and moments after one Adam step: max |diff| over the leaf's
+#: largest |x|, plus, elementwise, what the measured gradient difference
+#: dg (clip included) moves them by: m by (1 - b1) dg, v by (1 - b2) dg
+#: (|g| + |g'|), a param by at most lr dg / eps (the first update
+#: lr g / (|g| + eps) has slope at most lr / eps)
+MT_STEP_RTOL = 1e-6
+#: (d) RM1 V0, rows cut as [train] cuts them: batch, steps
+MT_RM1_BATCH, MT_RM1_STEPS = 64, 3
+
+
+def np_block(arr, placements, mesh):
+    """This rank's block of a (memory-mapped) numpy array under DTensor
+    ``placements``: ``sharding.block``'s narrowing, as slices."""
+    coord = mesh.get_coordinate()
+    start, size = [0] * arr.ndim, list(arr.shape)
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            d = pl.dim
+            size[d] //= mesh.size(i)
+            start[d] += coord[i] * size[d]
+    return arr[tuple(slice(a, a + n) for a, n in zip(start, size))]
+
+
+def sorted_items(tree, path=""):
+    """(path, leaf) in sorted-key order, None subtrees skipped."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from sorted_items(tree[k], f"{path}/{k}")
+    elif tree is not None:
+        yield path, tree
+
+
+def leaf_file(d, path: str) -> Path:
+    """The ``.npy`` file of a tree leaf ``path`` under directory ``d``."""
+    return Path(d) / (path.strip("/").replace("/", ".") + ".npy")
+
+
+def save_leaves(tree, d) -> None:
+    """Every leaf of ``tree`` to its own ``.npy`` file under ``d``."""
+    Path(d).mkdir(parents=True, exist_ok=True)
+    for path, t in sorted_items(tree):
+        np.save(leaf_file(d, path), t.detach().cpu().numpy())
+
+
+def placed_from_files(d, model, mesh, rules, dev):
+    """The model's parameters placed on ``mesh`` under ``rules``, each
+    rank reading only its blocks from the ``.npy`` files under ``d``
+    (memory-mapped): the weights never sit whole on the card."""
+    from repro_torch.distributed import sharding as shd
+
+    out = {}
+    with shd.use_mesh(mesh, rules):
+        for path, names in sorted_items(model.param_specs()):
+            arr = np.load(leaf_file(d, path), mmap_mode="r")
+            loc = np.array(np_block(
+                arr, shd.make_sharding(names, arr.shape), mesh))
+            *keys, last = path.strip("/").split("/")
+            node = out
+            for k in keys:
+                node = node.setdefault(k, {})
+            node[last] = shd.place_local(torch.from_numpy(loc).to(dev),
+                                         names, arr.shape)
+    return out
+
+
+def adam_first_step(cfg, p, g, clip):
+    """One device's first Adam update of one leaf from zero moments, in
+    ``optimizer.apply_updates``' op order: (new p, m, v)."""
+    step = torch.ones((), dtype=torch.float32, device=p.device)
+    bc1, bc2 = 1 - cfg.b1 ** step, 1 - cfg.b2 ** step
+    m = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    v = torch.zeros_like(m)
+    g = g.float() * clip
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * g * g
+    delta = cfg.lr * (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    return (p.float() - delta).to(p.dtype), m, v
+
+
+def grad_allreduce_bytes(params) -> int:
+    """The gradient all-reduce's payload a step on this rank: each
+    leaf's local gradient in fp32, once per mesh dim it is replicated
+    on."""
+    from repro_torch.distributed import sharding as shd
+    return sum(shd.local_tensor(x).numel() * 4 * len(shd.placed_dims(x)[1])
+               for _, x in sorted_items(params))
+
+
+class CkptTimer:
+    """Times every ``checkpoint.save`` and ``try_restore`` call made
+    while it is active."""
+
+    def __init__(self):
+        from repro_torch.train import checkpoint as ckpt
+        self.ckpt, self.orig = ckpt, (ckpt.save, ckpt.try_restore)
+        self.save_s, self.restore_s = [], []
+
+    def __enter__(self):
+        save, restore = self.orig
+
+        def timed(fn, into):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                into.append(time.perf_counter() - t0)
+                return out
+            return run
+
+        self.ckpt.save = timed(save, self.save_s)
+        self.ckpt.try_restore = timed(restore, self.restore_s)
+        return self
+
+    def __exit__(self, *exc):
+        self.ckpt.save, self.ckpt.try_restore = self.orig
+        return False
+
+
+def mt_loop_args(ckpt_dir: str):
+    from repro_torch.launch import train as train_cli
+    return train_cli.parser().parse_args(
+        ["--arch", "smollm-135m", "--steps", str(MT_STEPS), "--batch",
+         str(MT_BATCH), "--seq", str(MT_SEQ), "--ckpt-every",
+         str(MT_CKPT_EVERY), "--log-every", "1", "--ckpt-dir", ckpt_dir])
+
+
+def mt_fault_hook():
+    fired = []
+
+    def hook(step):
+        if step == MT_FAULT_AT and not fired:
+            fired.append(step)
+            raise RuntimeError("injected node failure")
+    return hook, fired
+
+
+def step_intervals(lines):
+    """Step ms from the loop's log lines: one "step" line to the next,
+    leaving out those that hold a checkpoint save or the fault."""
+    out = []
+    for (ta, ma), (tb, mb) in zip(lines, lines[1:]):
+        if not (ma.startswith("step") and mb.startswith("step")):
+            continue
+        a, b = int(ma.split()[1]), int(mb.split()[1])
+        if b == a + 1 and b % MT_CKPT_EVERY:
+            out.append((tb - ta) * 1e3)
+    return out
+
+
+def mt_lm_rank(rank: int, p) -> dict:
+    """(a) smollm-135m through ``run_train_loop(mesh=, rules=)`` on (data
+    2, model 2) with a fault and checkpoints; one more step with the
+    collectives timed; (b) ``elastic_restore`` of the loop's checkpoint
+    onto ``healthy_mesh({"model": 2}, 0.4)``: the survivors' params and
+    state gathered whole against the file's arrays, and one step there."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_loop import (make_sharded_train_step,
+                                              run_train_loop, train_shape)
+
+    dev = p["dev"]
+    model, opt_cfg, loader, loop_cfg = train_cli.build(mt_loop_args(p["ckpt"]))
+    cfg = model.cfg
+    mesh = make_host_mesh(2, device=dev)
+    rules = registry.make_rules(cfg, mesh, "train")
+    hook, fired = mt_fault_hook()
+    lines = []
+    dist.barrier()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with CkptTimer() as timer:
+        params, state, hist = run_train_loop(
+            model, opt_cfg, loader, loop_cfg, mesh=mesh, rules=rules,
+            params=p["params"], fault_hook=hook, device=dev,
+            log_fn=lambda m: lines.append((time.perf_counter(), m)))
+    torch.cuda.synchronize()
+    out = {"coord": mesh.get_coordinate(), "hist": hist, "fired": fired,
+           "loop_s": time.perf_counter() - t0,
+           "launches": sum(ops.LAUNCHES.values()),
+           "step_ms": step_intervals(lines),
+           "first_ms": (lines[0][0] - t0) * 1e3,
+           "save_s": timer.save_s, "restore_s": timer.restore_s,
+           "msgs": [m for _, m in lines], "card_gb": card_used_gb(),
+           "allreduce_bytes": grad_allreduce_bytes(params),
+           "latest": ckpt.latest_step(p["ckpt"])}
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in next(iter(loader)).items()}
+    step = make_sharded_train_step(model, opt_cfg, mesh, rules,
+                                   train_shape(batch))
+    step(params, state, batch)                    # warm
+    with MeshProbe(timed=True) as coll:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        out["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["coll_share"] = coll.coll_s * 1e3 / out["timed_step_ms"]
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the survivors restore the checkpoint
+    small = elastic.healthy_mesh({"model": 2}, failed_fraction=0.4,
+                                 device=dev)
+    out["healthy"] = small.mesh.tolist()
+    srules = registry.make_rules(cfg, small, "train")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = elastic.elastic_restore(p["ckpt"], model, opt_cfg, small, srules)
+    torch.cuda.synchronize()
+    out["elastic_s"] = time.perf_counter() - t0
+    if res is None:
+        return out
+    params, state, step_no = res
+    out["elastic_step"] = step_no
+    with np.load(Path(p["ckpt"]) / f"ckpt_{step_no:08d}.npz") as data:
+        diffs, n = [], 0
+        for prefix, tree in (("p", params), ("o", state)):
+            for path, x in sorted_items(tree):
+                whole = shd.full(x).float().cpu().numpy()
+                n += 1
+                if not np.array_equal(whole, data[prefix + path]):
+                    diffs.append(prefix + path)
+    out["elastic_leaves"], out["elastic_diffs"] = n, diffs
+    out["elastic_block"] = tuple(shd.local_tensor(params["embed"]).shape)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in p["batch_b"].items()}
+    ops.reset_launches()
+    _, _, met = make_sharded_train_step(model, opt_cfg, small, srules,
+                                        train_shape(b))(params, state, b)
+    out["elastic_loss"] = float(met["loss"])
+    out["elastic_launches"] = sum(ops.LAUNCHES.values())
+    return out
+
+
+def mt_copy_rank(rank: int, p) -> dict:
+    """(c) an fp32 copy at full width, 2 layers, on (data 2, model 2):
+    the loss, the MoE aux, every leaf's gradient and, after one Adam
+    step, the params and moments, each rank's blocks against the same
+    blocks of one device's (its gradients read from files; its step
+    recomputed from them by ``adam_first_step``)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg, dev, ocfg = p["cfg"], p["dev"], OptConfig()
+    model = registry.build(cfg)
+    mesh = make_host_mesh(2, device=dev)
+    rules = registry.make_rules(cfg, mesh, "train")
+    placed = placed_from_files(p["weights"], model, mesh, rules, dev)
+    with shd.use_mesh(mesh, rules):
+        state = opt_mod.init_state(ocfg, placed, opt_mod.state_specs(
+            ocfg, model.param_specs(), model.param_shapes()))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in p["batch"].items()}
+    dist.barrier()
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with shd.use_mesh(mesh, rules):
+        loss, grads = value_and_grad(model, placed, batch)
+        torch.cuda.synchronize()
+        vg_s = time.perf_counter() - t0
+        with torch.no_grad():
+            _, aux = model.forward(placed, batch, train=True)
+        gnorm = opt_mod.global_norm(grads)
+        mclip = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                            max=1.0)
+        opt_mod.apply_updates(ocfg, placed, grads, state)
+    torch.cuda.synchronize()
+    out = {"coord": mesh.get_coordinate(), "loss": float(loss),
+           "aux": float(aux), "vg_s": vg_s, "card_gb": card_used_gb(),
+           "launches": sum(ops.LAUNCHES.values()),
+           "allreduce_bytes": grad_allreduce_bytes(placed)}
+    wdir, clip = Path(p["witness"]), torch.tensor(p["clip"], device=dev)
+    worst = {k: (0.0, "") for k in ("grad", "param", "m", "v")}
+    bad = []
+
+    def note(kind, path, got, want, bound, scale):
+        """Fold one chunk's elementwise check into ``worst``/``bad``."""
+        diff = (got - want).abs()
+        rel = float(diff.max()) / max(scale, 1e-30)
+        if rel > worst[kind][0]:
+            worst[kind] = (rel, path)
+        if not bool((diff <= bound).all()):
+            bad.append(f"{kind} {path}: max err {float(diff.max()):.3g} "
+                       f"of {scale:.3g}")
+
+    def rows(t):
+        """Row ranges of ``t`` of at most 32 M elements (bounds the
+        comparison's temporaries)."""
+        per = max(1, (1 << 25) // max(1, t[0].numel()))
+        return [(i, min(t.shape[0], i + per))
+                for i in range(0, t.shape[0], per)]
+
+    def chunk_of(arr, a, b):
+        return torch.from_numpy(np.array(arr[a:b])).to(dev)
+
+    flat_g = dict(sorted_items(grads))
+    ms, vs = dict(sorted_items(state["m"])), dict(sorted_items(state["v"]))
+    del grads
+    for path in list(flat_g):
+        g, x, m, v = flat_g[path], placed_of(placed, path), ms[path], vs[path]
+        arr = np.load(leaf_file(wdir, path), mmap_mode="r")
+        init = np.load(leaf_file(p["weights"], path), mmap_mode="r")
+        # the param's block: the gradient, and the param after the step
+        wblk, p0 = (np_block(arr, x.placements, mesh),
+                    np_block(init, x.placements, mesh))
+        gl, xl = g.to_local(), x.to_local()
+        gatol = MT_GRAD_ATOL + MT_GRAD_RTOL * p["gmax"][path]
+        pscale = float(xl.abs().max())
+        own_ok = True
+        for a, b in rows(xl):
+            want = chunk_of(wblk, a, b)
+            note("grad", path, gl[a:b], want,
+                 gatol + MT_GRAD_RTOL * want.abs(), p["gmax"][path])
+            p0c = chunk_of(p0, a, b)
+            new_p = adam_first_step(ocfg, p0c, want, clip)[0]
+            dg = (gl[a:b].float() * mclip - want * clip).abs()
+            note("param", path, xl[a:b], new_p,
+                 MT_STEP_RTOL * pscale + ocfg.lr * dg / ocfg.eps, pscale)
+            # the ZeRO-1 update itself is exact: this rank's gradient and
+            # clip through one device's update give its block bitwise
+            own_ok &= torch.equal(adam_first_step(
+                ocfg, p0c, gl[a:b], mclip)[0], xl[a:b])
+            del want, new_p, dg, p0c
+        # the state's (ZeRO-1) block: the moments after the step
+        gwblk, pw = (np_block(arr, m.placements, mesh),
+                     np_block(init, m.placements, mesh))
+        gm = opt_mod._Zero(x, g, m).gb
+        ml, vl = m.to_local(), v.to_local()
+        mscale, vscale = float(ml.abs().max()), float(vl.abs().max())
+        for a, b in rows(ml):
+            gw, pwc = chunk_of(gwblk, a, b), chunk_of(pw, a, b)
+            _, mw, vw = adam_first_step(ocfg, pwc, gw, clip)
+            _, m_own, v_own = adam_first_step(ocfg, pwc, gm[a:b], mclip)
+            own_ok &= (torch.equal(m_own, ml[a:b])
+                       and torch.equal(v_own, vl[a:b]))
+            ga, gb = gm[a:b].float() * mclip, gw * clip
+            dgs = (ga - gb).abs()
+            note("m", path, ml[a:b], mw,
+                 MT_STEP_RTOL * mscale + (1 - ocfg.b1) * dgs, mscale)
+            note("v", path, vl[a:b], vw, MT_STEP_RTOL * vscale
+                 + (1 - ocfg.b2) * dgs * (ga.abs() + gb.abs()), vscale)
+            del gw, pwc, mw, vw, m_own, v_own, ga, gb, dgs
+        if not own_ok:
+            bad.append(f"{path}: the ZeRO-1 update is not one device's on "
+                       f"this rank's gradient")
+        del flat_g[path], g, arr, init
+    out["worst"], out["bad"] = worst, bad
+    return out
+
+
+def placed_of(tree, path):
+    for k in path.strip("/").split("/"):
+        tree = tree[k]
+    return tree
+
+
+def mt_rm1_rank(rank: int, p) -> dict:
+    """(d) RM1 V0 (rows cut) on (data 2, model 2), Adagrad: the bank's
+    gradient, each rank's block against one device's, and
+    ``MT_RM1_STEPS`` steps of the sharded train step; then one more step
+    with the collectives timed."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import (make_sharded_train_step,
+                                              train_shape, value_and_grad)
+
+    cfg, dev = p["cfg"], p["dev"]
+    ocfg = OptConfig(kind="adagrad")
+    model = registry.build(cfg)
+    mesh = make_host_mesh(2, device=dev)
+    rules = registry.make_rules(cfg, mesh, "train")
+    placed = placed_from_files(p["weights"], model, mesh, rules, dev)
+    with shd.use_mesh(mesh, rules):
+        state = opt_mod.init_state(ocfg, placed, opt_mod.state_specs(
+            ocfg, model.param_specs(), model.param_shapes()))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in p["batches"]]
+    dist.barrier()
+    ops.reset_launches()
+    with shd.use_mesh(mesh, rules):
+        loss, grads = value_and_grad(model, placed, batches[0])
+    bank = grads["embed"]
+    arr = np.load(p["witness"], mmap_mode="r")
+    want = torch.from_numpy(np.array(
+        np_block(arr, bank.placements, mesh))).to(dev)
+    got = bank.to_local()
+    out = {"coord": mesh.get_coordinate(), "loss0": float(loss),
+           "block": tuple(got.shape),
+           "bank_err": float((got - want).abs().max()),
+           "bank_ok": bool(torch.allclose(
+               got, want, rtol=MT_GRAD_RTOL,
+               atol=MT_GRAD_ATOL + MT_GRAD_RTOL * p["gmax"])),
+           "allreduce_bytes": grad_allreduce_bytes(placed)}
+    del grads, bank, want, got
+    step = make_sharded_train_step(model, ocfg, mesh, rules,
+                                   train_shape(batches[0]))
+    losses, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, met = step(placed, state, b)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(losses=losses, step_ms=ms, card_gb=card_used_gb(),
+               launches=sum(ops.LAUNCHES.values()))
+    with MeshProbe(timed=True) as coll:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(placed, state, batches[0])
+        torch.cuda.synchronize()
+        out["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["coll_share"] = coll.coll_s * 1e3 / out["timed_step_ms"]
+    return out
+
+
+MESH_JOBS.update(train_lm=mt_lm_rank, train_copy=mt_copy_rank,
+                 train_rm1=mt_rm1_rank)
+
+
+def mt_lm_case(dev, tmp: Path, card) -> dict:
+    """(a)'s weights, drawn once, and one device's run of the same loop
+    on a copy of them (its own checkpoint directory) before the ranks."""
+    from repro_torch.data.queries import ShardedLoader, lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.train_loop import run_train_loop
+
+    model, opt_cfg, loader, loop_cfg = train_cli.build(
+        mt_loop_args(str(tmp / "one")))
+    params = model.init(0, device=dev)
+    hook, fired = mt_fault_hook()
+    lines = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, _, hist = run_train_loop(
+        model, opt_cfg, loader, loop_cfg,
+        params=tree_map(lambda t: t.clone(), params), fault_hook=hook,
+        device=dev, log_fn=lambda m: lines.append((time.perf_counter(), m)))
+    torch.cuda.synchronize()
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
+    ms = step_intervals(lines)
+    vocab = model.cfg.vocab_size
+    batch_b = {k: np.asarray(v) for k, v in next(iter(ShardedLoader(
+        lambda rng: lm_batch(vocab, MT_BATCH, MT_SEQ, rng), seed=1))).items()}
+    log(f"[mesh-train] (a) one device's witness: {len(hist)} logged steps "
+        f"in {time.perf_counter() - t0:.1f} s, step {statistics.median(ms):.3f}"
+        f" ms median; {card}")
+    return {"model": model, "opt_cfg": opt_cfg, "hist": hist,
+            "one_ms": ms, "batch_b": batch_b,
+            "payload": {"params": params, "dev": dev,
+                        "ckpt": str(tmp / "mesh"), "batch_b": batch_b}}
+
+
+def mt_copy_case(arch, dev, tmp: Path, card) -> dict:
+    """(c): an fp32 copy of ``arch`` at full width, 2 layers (MoE at
+    capacity factor 8.0), its weights drawn once, and one device's loss,
+    aux, gradients and gradient clip before the ranks; the weights and
+    the gradients go to ``.npy`` files, from which each rank reads its
+    blocks.  smollm's also checks ``adam_first_step`` against one
+    device's ``apply_updates`` bitwise."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import value_and_grad
+
+    layers, B, S = MT_COPIES[arch]
+    cfg = configs.get_config(arch).replace(
+        num_layers=layers, dtype="float32", param_dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                                  capacity_factor=8.0))
+    model = registry.build(cfg)
+    params = drawn_compact(lambda: model.init(0, device=dev), dev)
+    rng = np.random.RandomState(17)
+    toks = rng.randint(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    ocfg = OptConfig()
+    one = tree_map(lambda t: t.clone(), params)
+    ops.reset_launches()
+    loss, grads = value_and_grad(model, one, tb)
+    with torch.no_grad():
+        _, aux = model.forward(one, tb, train=True)
+    gnorm = opt_mod.global_norm(grads)
+    clip = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                       max=1.0)
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
+    wdir = tmp / arch / "grads"
+    save_leaves(grads, wdir)
+    save_leaves(params, tmp / arch / "weights")
+    gmax = {path: float(g.abs().max()) for path, g in sorted_items(grads)}
+    checked = ""
+    if arch == "smollm-135m":     # the recomputed step is one device's
+        state = opt_mod.init_state(ocfg, one)
+        opt_mod.apply_updates(ocfg, one, grads, state)
+        for path, g in sorted_items(grads):
+            p0 = placed_of(params, path)
+            np_, m, v = adam_first_step(ocfg, p0, g, clip)
+            assert torch.equal(np_, placed_of(one, path)), path
+            assert torch.equal(m, placed_of(state["m"], path)), path
+            assert torch.equal(v, placed_of(state["v"], path)), path
+        checked = "; adam_first_step bitwise equal to apply_updates"
+        del state
+    log(f"[mesh-train] (c) {arch} fp32 copy: {layers} layers at full "
+        f"width, batch {B} x seq {S}: one device's loss {float(loss):.6f}, "
+        f"aux {float(aux):.6f}, grad norm {float(gnorm):.6f}, clip "
+        f"{float(clip):.6f}{checked}; {card}")
+    out = {"arch": arch, "loss": float(loss), "aux": float(aux),
+           "payload": {"cfg": cfg, "weights": str(tmp / arch / "weights"),
+                       "dev": dev, "batch": batch, "witness": str(wdir),
+                       "clip": float(clip), "gmax": gmax}}
+    del one, grads, loss, params
+    return out
+
+
+def mt_rm1_case(dev, tmp: Path, card) -> dict:
+    """(d): RM1 V0 (rows cut), its weights drawn once (and written to
+    ``.npy`` files for the ranks), seeded batches, and one device's bank
+    gradient (written to a file) and Adagrad losses over the same steps
+    before the ranks."""
+    from repro_torch.configs import rm1
+    from repro_torch.data.queries import dlrm_batch
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+
+    cfg = rm1.CONFIG.replace(
+        name=f"rm1.v0-rows{TRAIN_RM1_ROWS // 1000}k",
+        dlrm=dataclasses.replace(rm1.CONFIG.dlrm,
+                                 rows_per_table=TRAIN_RM1_ROWS))
+    model = registry.build(cfg)
+    params = model.init(0, device=dev)
+    rng = np.random.RandomState(29)
+    batches = [{k: np.asarray(v) for k, v in dlrm_batch(
+        cfg, MT_RM1_BATCH, rng).items()} for _ in range(MT_RM1_STEPS)]
+    tbs = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+           for b in batches]
+    one = tree_map(lambda t: t.clone(), params)
+    _, grads = value_and_grad(model, one, tbs[0])
+    bank = grads["embed"]
+    np.save(tmp / "rm1_bank_grad.npy", bank.cpu().numpy())
+    save_leaves(params, tmp / "rm1")
+    gmax = float(bank.abs().max())
+    del grads, bank
+    ocfg = OptConfig(kind="adagrad")
+    state = opt_mod.init_state(ocfg, one)
+    step = make_train_step(model, ocfg)
+    losses = []
+    for b in tbs:
+        one, state, met = step(one, state, b)
+        losses.append(float(met["loss"]))
+    log(f"[mesh-train] (d) {cfg.name}: one device's Adagrad losses "
+        f"{[round(v, 6) for v in losses]}; {card}")
+    del one, state, params
+    return {"cfg": cfg, "losses": losses,
+            "payload": {"cfg": cfg, "weights": str(tmp / "rm1"), "dev": dev,
+                        "batches": batches,
+                        "witness": str(tmp / "rm1_bank_grad.npy"),
+                        "gmax": gmax}}
+
+
+def mt_check_lm(case, res, card) -> None:
+    hist = case["hist"]
+    for r, x in enumerate(res):
+        assert x["fired"] == [MT_FAULT_AT], x["fired"]
+        assert x["launches"] == 0, x["launches"]
+        assert x["latest"] == MT_STEPS, x["latest"]
+        assert [s for s, _ in x["hist"]] == [s for s, _ in hist], x["hist"]
+        for (s, got), (_, want) in zip(x["hist"], hist):
+            assert abs(got - want) <= MT_LOSS_RTOL * abs(want), (s, got, want)
+        assert x["hist"][-1][1] < x["hist"][0][1], x["hist"]
+        ms = x["step_ms"]
+        log(f"[mesh-train] (a) rank {r} {tuple(x['coord'])}: "
+            f"run_train_loop(mesh=, rules=) {MT_STEPS} steps in "
+            f"{x['loop_s']:.1f} s; step {statistics.median(ms):.3f} ms "
+            f"median over {len(ms)} (min {min(ms):.3f}, max {max(ms):.3f}; "
+            f"the first, with its warm-up, {x['first_ms']:.1f}); "
+            f"{MT_BATCH * MT_SEQ / statistics.median(ms) * 1e3:.0f} tokens/s;"
+            f" collectives {x['coll_share']:.3f} of a step's wall "
+            f"({x['timed_step_ms']:.1f} ms, each collective timed from a "
+            f"synchronised card; gloo stages through host memory, not "
+            f"NVLink); gradient all-reduce payload "
+            f"{x['allreduce_bytes'] / 1e6:.1f} MB a step; saves "
+            f"{[round(t, 2) for t in x['save_s']]} s, restores "
+            f"{[round(t, 2) for t in x['restore_s']]} s; peak "
+            f"{x['peak_gb']:.3f} GB, the card {x['card_gb']:.2f} GB in use; "
+            f"{card}")
+    log(f"[mesh-train] (a) losses, mesh against one device: "
+        f"{[(s, round(a, 4), round(b, 4)) for (s, a), (_, b) in zip(res[0]['hist'], hist)]}"
+        f" (within {MT_LOSS_RTOL}); one device's step "
+        f"{statistics.median(case['one_ms']):.3f} ms median; {card}")
+
+
+def mt_check_elastic(case, res, dev, card) -> None:
+    """(b): the survivors hold the checkpoint bitwise, and their step's
+    loss lies within ``MT_LOSS_RTOL`` of one device's step from the same
+    checkpoint on the same batch."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import make_train_step
+
+    members = [x for x in res if "elastic_step" in x]
+    assert len(members) == 2, [x.get("healthy") for x in res]
+    model, opt_cfg = case["model"], case["opt_cfg"]
+    tpl = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                         device="meta"), model.param_shapes())
+    params, state, step_no = ckpt.try_restore(
+        case["payload"]["ckpt"], tpl, opt_mod.init_state(opt_cfg, tpl),
+        device=dev)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in case["batch_b"].items()}
+    _, _, met = make_train_step(model, opt_cfg)(params, state, b)
+    want = float(met["loss"])
+    for x in members:
+        assert x["elastic_step"] == step_no == MT_STEPS, x["elastic_step"]
+        assert not x["elastic_diffs"], x["elastic_diffs"]
+        assert x["elastic_launches"] == 0
+        assert abs(x["elastic_loss"] - want) <= MT_LOSS_RTOL * abs(want), (
+            x["elastic_loss"], want)
+    log(f"[mesh-train] (b) healthy_mesh({{'model': 2}}, 0.4) -> "
+        f"{res[0]['healthy']}: elastic_restore of step {step_no} in "
+        f"{[round(x['elastic_s'], 2) for x in res]} s by rank; "
+        f"{members[0]['elastic_leaves']} leaves gathered whole, bitwise the "
+        f"file's; embed block {members[0]['elastic_block']}; one step "
+        f"there: loss {members[0]['elastic_loss']:.5f} against one device's "
+        f"{want:.5f} from the same checkpoint; {card}")
+    del params, state
+
+
+def mt_check_copy(case, res, card) -> None:
+    arch = case["arch"]
+    for r, x in enumerate(res):
+        assert x["launches"] == 0, x["launches"]
+        assert abs(x["loss"] - case["loss"]) <= MT_COPY_LOSS_RTOL * abs(
+            case["loss"]), (x["loss"], case["loss"])
+        assert abs(x["aux"] - case["aux"]) <= MT_AUX_ATOL, (x["aux"],
+                                                            case["aux"])
+        assert not x["bad"], x["bad"][:8]
+        log(f"[mesh-train] (c) {arch} rank {r} {tuple(x['coord'])}: loss "
+            f"{x['loss']:.6f} (one device {case['loss']:.6f}), aux "
+            f"{x['aux']:.6f} ({case['aux']:.6f}); worst leaf, max |err| "
+            f"over its largest |x|: " + ", ".join(
+                f"{k} {v:.3g} ({p})" for k, (v, p) in x["worst"].items())
+            + f"; value_and_grad {x['vg_s'] * 1e3:.1f} ms; gradient "
+            f"all-reduce payload {x['allreduce_bytes'] / 1e6:.1f} MB; peak "
+            f"{x['peak_gb']:.3f} GB, the card {x['card_gb']:.2f} GB in use; "
+            f"{card}")
+
+
+def mt_check_rm1(case, res, card) -> None:
+    for r, x in enumerate(res):
+        assert x["launches"] == 0, x["launches"]
+        assert x["bank_ok"], x["bank_err"]
+        for got, want in zip(x["losses"], case["losses"]):
+            assert abs(got - want) <= MT_COPY_LOSS_RTOL * abs(want), (
+                x["losses"], case["losses"])
+        ms = x["step_ms"]
+        log(f"[mesh-train] (d) {case['cfg'].name} rank {r} "
+            f"{tuple(x['coord'])}: bank block {x['block']}, its gradient "
+            f"within rtol {MT_GRAD_RTOL} of one device's (max err "
+            f"{x['bank_err']:.3g}); Adagrad losses "
+            f"{[round(v, 6) for v in x['losses']]}; step "
+            f"{statistics.median(ms):.3f} ms median of {len(ms)} (min "
+            f"{min(ms):.3f}, max {max(ms):.3f}); "
+            f"{MT_RM1_BATCH / statistics.median(ms) * 1e3:.0f} samples/s; "
+            f"collectives {x['coll_share']:.3f} of a step's wall "
+            f"({x['timed_step_ms']:.1f} ms); gradient all-reduce payload "
+            f"{x['allreduce_bytes'] / 1e6:.1f} MB; peak {x['peak_gb']:.3f} "
+            f"GB, the card {x['card_gb']:.2f} GB in use; {card}")
+
+
+def mesh_train_phase(dev, card) -> None:
+    """Training on a mesh of 4 rank processes on the one card (gloo, as
+    in [mesh]).  Cases and cuts: (a) smollm-135m at its published
+    widths, nothing cut, bf16, on (data 2, model 2): batch 8 x seq 1024
+    and 8 steps (cut from [train]'s 2048 and 40 for the phase's time),
+    a checkpoint every 3, a fault at step 5; (b) its checkpoint restored
+    onto the 2 survivors; (c) fp32 copies at full width, depth cut to 2
+    layers: smollm at batch 4 x 256, qwen2-moe-a2.7b at batch 2 x 256
+    and capacity factor 8.0; (d) RM1 V0, rows_per_table cut to 10,000
+    as in [train], batch 64, 3 steps.  One device's witness of each case
+    is computed first from the same weights (its gradients kept in files
+    on the host); the ranks compare their blocks against it."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[mesh-train] {MESH_WORLD} rank processes on cuda:0 (gloo, as "
+        f"[mesh]); collectives differentiated by their transposes; ZeRO-1 "
+        f"Adam/Adagrad state over data; no kernel launches")
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        lm = mt_lm_case(dev, tmp, card)
+        free_card()
+        copies = [mt_copy_case(a, dev, tmp, card) for a in MT_COPIES]
+        free_card()
+        rm = mt_rm1_case(dev, tmp, card)
+        free_card()
+        log(f"[mesh-train] witnesses done in {time.perf_counter() - t0:.1f} "
+            f"s; the parent holds {torch.cuda.memory_allocated() / 1e9:.2f} "
+            f"GB of weights for the ranks")
+        jobs = ([("train_lm", lm["payload"])]
+                + [("train_copy", c["payload"]) for c in copies]
+                + [("train_rm1", rm["payload"])])
+        per_job, wall_s = run_ranks(jobs, deadline_s=600)
+        log(f"[mesh-train] {MESH_WORLD} ranks spawned, trained and joined "
+            f"in {wall_s:.1f} s")
+        mt_check_lm(lm, per_job[0], card)
+        del jobs
+        free_card()
+        mt_check_elastic(lm, per_job[0], dev, card)
+        for c, res in zip(copies, per_job[1:-1]):
+            mt_check_copy(c, res, card)
+        mt_check_rm1(rm, per_job[-1], card)
+        del lm, copies, rm, per_job
+        free_card()
+    log(f"[mesh-train] phase took {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3077,6 +3878,9 @@ def main() -> int:
 
     # --------------------------------------------------------------- mesh
     mesh_phase(dev, card, reqs, scores, rows)
+
+    # --------------------------------------------------------- mesh-train
+    mesh_train_phase(dev, card)
 
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -2,19 +2,19 @@
 
 The counterpart of ``repro.distributed.elastic``.  Node failures shrink
 the healthy device set; DisaggRec's failure handling (§IV-A) maps at
-serving time to: rebuild the mesh from the survivors -> place the
-parameters with the new mesh's shardings -> serve again.  Here a device
-is a process of the ``torch.distributed`` world (a rank), and a shrunken
-mesh is a ``DeviceMesh`` over a subgroup of the survivors' ranks.
-
-``elastic_restore`` (a checkpoint restored onto the new mesh) waits for
-the training half of the mesh (ROADMAP Queue 1 item 8b).
+training and serving time to: checkpoint -> rebuild the mesh from the
+survivors -> restore with the new mesh's shardings (``elastic_restore``)
+or place the live parameters there (``reshard_tree``) -> train or serve
+again.  Here a device is a process of the ``torch.distributed`` world (a
+rank), and a shrunken mesh is a ``DeviceMesh`` over a subgroup of the
+survivors' ranks.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
@@ -52,11 +52,50 @@ def reshard_tree(tree, spec_tree, mesh: DeviceMesh, rules=None):
     (``sharding.place``): a plain (whole) tensor by taking this rank's
     block, a DTensor on ``mesh`` redistributed, a DTensor on another
     mesh first made whole there (so every rank of that mesh calls
-    this).  Returns None on a rank outside ``mesh``."""
+    this).  A None subtree (an optimizer's absent ``err``) stays None.
+    Returns None on a rank outside ``mesh``."""
     tree = tree_map(lambda x: shd.full(x) if isinstance(x, DTensor)
                     and x.device_mesh != mesh else x, tree)
     if mesh.get_coordinate() is None:
         return None
     with shd.use_mesh(mesh, rules):
-        return tree_map(lambda x, names: shd.place(x, names), tree,
-                        spec_tree)
+        return tree_map(lambda x, names: None if x is None
+                        else shd.place(x, names), tree, spec_tree)
+
+
+def elastic_restore(ckpt_dir: str, model, opt_cfg, mesh: DeviceMesh,
+                    rules=None):
+    """The latest checkpoint in ``ckpt_dir`` restored onto ``mesh``:
+    (params, opt_state, step) with the parameters placed under the
+    model's ``param_specs`` and the state under ``optimizer.state_specs``
+    (ZeRO-1 on the new mesh's ``data`` axis), each rank keeping its
+    blocks.  None when there is no checkpoint, and on a rank outside
+    ``mesh`` (every rank of the world calls ``healthy_mesh``, only the
+    mesh's ranks this)."""
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+
+    if mesh.get_coordinate() is None:
+        return None
+    dev = _mesh_device(mesh)
+    params_tpl = model.param_shapes()
+    params_tpl = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                                device="meta"), params_tpl)
+    opt_tpl = opt_mod.init_state(opt_cfg, params_tpl)
+    out = ckpt.try_restore(ckpt_dir, params_tpl, opt_tpl, device=dev)
+    if out is None:
+        return None
+    params, opt_state, step = out
+    with shd.use_mesh(mesh, rules):
+        pspecs = model.param_specs()
+        sspecs = opt_mod.state_specs(opt_cfg, pspecs, model.param_shapes())
+    params = reshard_tree(params, pspecs, mesh, rules)
+    opt_state = reshard_tree(opt_state, sspecs, mesh, rules)
+    return params, opt_state, step
+
+
+def _mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device on ``mesh``: its current card, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -49,6 +49,23 @@ local slice; :func:`psum` and :func:`pmax` are ``all_reduce``), never a
 functional collective.  Reductions of bf16/fp16 run in fp32 and round
 once: an all-reduce in bf16 would round at each hop, in an order the
 backend picks.
+
+Gradients.  When grad mode is on and the input requires grad, each
+collective is an autograd function whose backward is its linear
+transpose, as JAX defines it for a ``shard_map`` body with
+``check_rep=False``: :func:`psum` -> a psum of the cotangent over the
+same axes; :func:`all_gather` (and the gathers of :func:`redistribute`,
+so of :func:`lsc`, :func:`local`, :func:`full` and :func:`place`) -> a
+reduce-scatter (a psum, then this rank's block); taking a block (a
+``narrow``) -> zero-padding into the whole, by autograd itself.
+:func:`pmax` has no gradient.  Seen as one function of every rank's
+tensors these are the exact vector-Jacobian products, so a loss that
+every rank computes alike, differentiated as ``loss / world`` on each
+rank, gives each rank's copy of a leaf its share of the gradient, and a
+psum over the ranks holding copies gives the whole
+(``train.train_loop.value_and_grad_mesh``).  The backward runs the same
+c10d calls as the forward.  With grad mode off the collectives are the
+plain calls, no autograd function in between.
 """
 from __future__ import annotations
 
@@ -123,6 +140,19 @@ def use_mesh(mesh: MeshLike, rules: Optional[Dict] = None):
         yield
     finally:
         _CTX.mesh, _CTX.rules = old_mesh, old_rules
+
+
+def bind_mesh(fn):
+    """``fn`` run under the mesh and rules active here, wherever it is
+    called from.  The context is thread-local, and a checkpointed
+    function recomputes in the backward, which on the card runs on
+    autograd's device thread, where no mesh is active."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+
+    def run(*args, **kwargs):
+        with use_mesh(mesh, rules):
+            return fn(*args, **kwargs)
+    return run
 
 
 def current_mesh() -> MeshLike:
@@ -253,6 +283,56 @@ def _gather(x: torch.Tensor, mesh: DeviceMesh, mesh_dim: int,
     return torch.cat(parts, dim=dim)
 
 
+def _psum_dims(x: torch.Tensor, mesh: DeviceMesh, dims) -> torch.Tensor:
+    for i in dims:
+        x = _reduce(x, mesh.get_group(i), dist.ReduceOp.SUM)
+    return x
+
+
+def _grad_needed(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Psum(torch.autograd.Function):
+    """psum whose backward is the psum of the cotangent over the same
+    axes: the transpose JAX gives ``psum`` in a ``shard_map`` body."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return _psum_dims(x, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_dims(g.contiguous(), ctx.mesh, ctx.dims), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """all-gather on ``dim`` over one mesh dim, whose backward is the
+    reduce-scatter: the cotangent psummed over that mesh dim, then this
+    rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, mesh_dim, dim):
+        ctx.mesh, ctx.mesh_dim, ctx.dim = mesh, mesh_dim, dim
+        ctx.size = x.shape[dim]
+        return _gather(x, mesh, mesh_dim, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _psum_dims(g.contiguous(), ctx.mesh, [ctx.mesh_dim])
+        i = ctx.mesh.get_local_rank(ctx.mesh_dim)
+        return g.narrow(ctx.dim, i * ctx.size, ctx.size), None, None, None
+
+
+def _gather_ad(x: torch.Tensor, mesh: DeviceMesh, mesh_dim: int,
+               dim: int) -> torch.Tensor:
+    """:func:`_gather`, differentiable when ``x`` requires grad."""
+    if _grad_needed(x):
+        return _Gather.apply(x, mesh, mesh_dim, dim)
+    return _gather(x, mesh, mesh_dim, dim)
+
+
 def _mesh_dims(entry: Entry):
     """The active DeviceMesh and its dims named by ``entry`` (a mesh
     axis, a tuple of them, or None for none)."""
@@ -266,15 +346,22 @@ def _mesh_dims(entry: Entry):
 
 def psum(x: torch.Tensor, entry: Entry) -> torch.Tensor:
     """Sum of every rank's ``x`` over the mesh axes of ``entry``: the
-    counterpart of ``jax.lax.psum`` in a ``shard_map`` body."""
+    counterpart of ``jax.lax.psum`` in a ``shard_map`` body.  Its
+    gradient is the psum of the cotangent over the same axes."""
     mesh, dims = _mesh_dims(entry)
-    for i in dims:
-        x = _reduce(x, mesh.get_group(i), dist.ReduceOp.SUM)
-    return x
+    if dims and _grad_needed(x):
+        return _Psum.apply(x, mesh, dims)
+    return _psum_dims(x, mesh, dims)
 
 
 def pmax(x: torch.Tensor, entry: Entry) -> torch.Tensor:
-    """Elementwise max of every rank's ``x`` over the mesh axes."""
+    """Elementwise max of every rank's ``x`` over the mesh axes.  It has
+    no gradient: it serves only as the shift of a softmax or a
+    logsumexp, whose value does not depend on the shift, so the caller
+    passes a detached ``x``; a grad-requiring ``x`` raises."""
+    if _grad_needed(x):
+        raise ValueError("pmax has no gradient: pass a detached tensor "
+                         "(a softmax or logsumexp shift)")
     mesh, dims = _mesh_dims(entry)
     for i in dims:
         x = _reduce(x, mesh.get_group(i), dist.ReduceOp.MAX)
@@ -284,10 +371,11 @@ def pmax(x: torch.Tensor, entry: Entry) -> torch.Tensor:
 def all_gather(x: torch.Tensor, entry: Entry, dim: int) -> torch.Tensor:
     """The whole of a dim sharded over ``entry`` from every rank's block
     ``x``: the blocks concatenated on ``dim`` in the axes' rank order
-    (the innermost axis first, as DTensor nests the shards)."""
+    (the innermost axis first, as DTensor nests the shards).  Its
+    gradient is the reduce-scatter of the cotangent."""
     mesh, dims = _mesh_dims(entry)
     for i in reversed(dims):
-        x = _gather(x, mesh, i, dim)
+        x = _gather_ad(x, mesh, i, dim)
     return x
 
 
@@ -354,7 +442,7 @@ def redistribute(x: DTensor, pl: Sequence[Placement]) -> DTensor:
     # (DTensor nests a later mesh dim's shards inside an earlier one's)
     for i in reversed(range(first, len(cur))):
         if isinstance(cur[i], Shard):
-            loc = _gather(loc, mesh, i, cur[i].dim)
+            loc = _gather_ad(loc, mesh, i, cur[i].dim)
     coord = mesh.get_coordinate()
     for i in range(first, len(pl)):
         if isinstance(pl[i], Shard):
@@ -408,8 +496,15 @@ def place(x, names, mesh: Optional[DeviceMesh] = None) -> DTensor:
         pl = make_sharding(tuple(names), x.shape)
     if isinstance(x, DTensor):
         return redistribute(x, pl)
+    return place_with(x, pl, mesh)
+
+
+def place_with(x: torch.Tensor, pl: Sequence[Placement],
+               mesh: DeviceMesh) -> DTensor:
+    """A plain (whole) tensor placed on ``mesh`` with placements ``pl``:
+    a copy of this rank's block."""
     stride = torch.empty(x.shape, device="meta").stride()
-    return DTensor.from_local(block(x, pl, mesh).clone(), mesh, pl,
+    return DTensor.from_local(block(x, pl, mesh).clone(), mesh, tuple(pl),
                               shape=x.shape, stride=stride)
 
 
@@ -421,3 +516,30 @@ def place_local(loc: torch.Tensor, names, shape) -> DTensor:
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(loc, mesh, pl, shape=torch.Size(shape),
                               stride=stride)
+
+
+def placed_zeros(shape, names, dtype: torch.dtype, device) -> DTensor:
+    """Zeros of global ``shape`` placed under ``names`` on the active
+    mesh, made from this rank's block only."""
+    mesh = device_mesh()
+    pl = make_sharding(tuple(names), shape)
+    blk = block(torch.empty(shape, device="meta"), pl, mesh).shape
+    return place_local(torch.zeros(blk, dtype=dtype, device=device), names,
+                       shape)
+
+
+def placed_dims(x) -> Tuple[list, list]:
+    """(the mesh dims a DTensor is sharded on, those it is replicated
+    on); a plain tensor on the active mesh is replicated on every dim."""
+    if isinstance(x, DTensor):
+        pl = x.placements
+    else:
+        pl = [Replicate()] * device_mesh().ndim
+    return ([i for i, p in enumerate(pl) if isinstance(p, Shard)],
+            [i for i, p in enumerate(pl) if not isinstance(p, Shard)])
+
+
+def dims_entry(mesh: DeviceMesh, dims) -> Entry:
+    """The entry (axis names) of mesh ``dims``."""
+    names = tuple(mesh.mesh_dim_names[i] for i in dims)
+    return None if not names else (names[0] if len(names) == 1 else names)

@@ -1,4 +1,4 @@
-"""Step builders for serving on a mesh: prefill and decode programs.
+"""Step builders on a mesh: train, prefill and decode programs.
 
 The counterpart of ``repro.launch.steps.build_program``.  The reference
 jits each step with the mesh's shardings; the port runs eagerly, so a
@@ -7,11 +7,9 @@ mode, and its example arguments are the placed shapes the step expects:
 DTensors with meta local tensors, the counterpart of the reference's
 ``ShapeDtypeStruct`` trees with their ``in_shardings``.  The caller
 places real arguments the same way (``elastic.reshard_tree`` for the
-parameters, ``sharding.place`` for the inputs) or passes plain whole
-tensors, which the step blocks itself.
-
-The train program (ZeRO-1 state, ``make_sharded_train_step``) waits for
-the training half of the mesh (ROADMAP Queue 1 item 8b).
+parameters, ``optimizer.init_state(cfg, params, state_specs)`` or
+``reshard_tree`` for the ZeRO-1 state, ``sharding.place`` for the
+inputs) or passes plain whole tensors, which the step blocks itself.
 """
 from __future__ import annotations
 
@@ -24,6 +22,9 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import registry
 from repro_torch.models.params import tree_map
+from repro_torch.train import optimizer as opt_mod
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.train_loop import make_sharded_train_step
 
 
 def _placed_meta(pl, leaf) -> DTensor:
@@ -36,10 +37,16 @@ def _placed_meta(pl, leaf) -> DTensor:
 
 
 def build_program(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                  opt_cfg: Optional[OptConfig] = None,
                   rule_overrides: Optional[Dict] = None,
-                  cache_len: Optional[int] = None):
-    """Returns (fn, example_args, rules) for a serving shape.
+                  microbatches: int = 1, cache_len: Optional[int] = None):
+    """Returns (fn, example_args, rules).
 
+    train  : step(params, opt_state, batch) -> (params, opt_state,
+             metrics): ``train_loop.make_sharded_train_step`` with
+             ``opt_cfg`` (default ``OptConfig()``) and ``microbatches``,
+             the parameters and the ZeRO-1 state written in place (the
+             reference's ``donate_argnums``)
     prefill: fn(params, batch) -> (logits, cache); the cache holds
              ``cache_len`` slots (default ``shape.seq_len``, the
              reference's: a server that decodes after the prefill asks
@@ -47,17 +54,15 @@ def build_program(cfg: ModelConfig, shape: ShapeConfig, mesh,
     decode : fn(params, cache, batch) -> (logits, cache), the cache
              written in place
 
-    Each runs under ``torch.no_grad()`` and ``use_mesh(mesh, rules)``.
-    ``example_args`` holds placed meta DTensors: (params, batch) or
-    (params, cache, batch).
+    Each runs under ``use_mesh(mesh, rules)``, prefill and decode under
+    ``torch.no_grad()``.  ``example_args`` holds placed meta DTensors:
+    (params, opt_state, batch), (params, batch) or (params, cache,
+    batch).
     """
     model = registry.build(cfg)
     mode = registry.mode_for_shape(shape)
-    if mode == "train":
-        raise NotImplementedError(
-            "the train program on a mesh (ZeRO-1 state_specs, "
-            "make_sharded_train_step) waits for ROADMAP Queue 1 item 8b")
     rules = registry.make_rules(cfg, mesh, mode, overrides=rule_overrides)
+    opt_cfg = opt_cfg or OptConfig()
 
     with shd.use_mesh(mesh, rules):
         pshapes = model.param_shapes()
@@ -72,6 +77,20 @@ def build_program(cfg: ModelConfig, shape: ShapeConfig, mesh,
             cshapes = model.cache_specs(shape)
             cache = tree_map(_placed_meta, shd.tree_shardings_for_shapes(
                 model.cache_logical(shape), cshapes), cshapes)
+        if mode == "train":
+            sspecs = opt_mod.state_specs(opt_cfg, model.param_specs(),
+                                         pshapes)
+            meta = tree_map(lambda s: torch.empty(
+                s.shape, dtype=s.dtype, device="meta"), pshapes)
+            oshapes = opt_mod.init_state(opt_cfg, meta)
+            opt_state = tree_map(
+                lambda names, s: None if s is None else _placed_meta(
+                    shd.make_sharding(names, s.shape), s), sspecs, oshapes)
+
+    if mode == "train":
+        step = make_sharded_train_step(model, opt_cfg, mesh, rules, shape,
+                                       microbatches)
+        return step, (params, opt_state, batch), rules
 
     if mode == "prefill":
         slots = cache_len or shape.seq_len

@@ -12,8 +12,11 @@ tolerance:
       --reduced                                # reduced config, CPU
 
 The DLRM archs train on ``dlrm_batch`` and the LMs on ``lm_batch``,
-through ``data.queries.ShardedLoader``.  The reference's ``--mesh``
-waits for the training half of the mesh (ROADMAP Queue 1 item 8b).
+through ``data.queries.ShardedLoader``.  The CLI trains on one device,
+as the reference's does (its argparse has no ``--mesh``); training on a
+mesh is ``train_loop.run_train_loop(mesh=, rules=)`` or
+``make_sharded_train_step``, called by every rank of a
+``torch.distributed`` world.
 """
 from __future__ import annotations
 

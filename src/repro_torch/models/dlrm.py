@@ -57,6 +57,11 @@ def _mlp_apply(t, x, n):
     return x
 
 
+def _bce(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Stable BCE-with-logits terms, as the reference writes them."""
+    return torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-torch.abs(z)))
+
+
 def params_from_reference(tree: Any, device: DeviceLike = None) -> Any:
     """Convert a reference parameter tree (nested dicts of numpy arrays,
     e.g. ``jax.tree.map(np.asarray, params)``) into the port's tensors
@@ -144,7 +149,12 @@ class DLRMModel:
                 table, torch.zeros(T, dtype=torch.int32, device=idx.device),
                 flat.to(torch.int32))
         else:
-            part = torch.where(mine[..., None], table[flat.clamp(min=0)],
+            # another rank's slot reads a row of this block spread as its
+            # own row is (its term is masked): gathering every such slot
+            # from one row would serialise the backward's scatter-add
+            spread = (t % T_loc) * R_loc + r % R_loc
+            part = torch.where(mine[..., None],
+                               table[torch.where(mine, flat, spread)],
                                0.0).sum(dim=2)
         pooled = shd.psum(shd.psum(part, tspec), rspec)
         if not use_kernel:
@@ -194,12 +204,21 @@ class DLRMModel:
         return shd.place_local(local, ("batch",), (batch["dense"].shape[0],))
 
     def loss(self, params, batch) -> torch.Tensor:
+        """Mean BCE over the batch, the pooling on its plain path (the
+        reference's loss pools with ``embedding_bag_ref``).  On a mesh
+        each rank sums its batch block's terms and a psum over the batch
+        axes gives every rank the global mean; the bank's block gets its
+        gradient through the Fsum's psum."""
+        if shd.device_mesh() is not None:
+            B = batch["labels"].shape[0]
+            z = self._forward_mesh(params, batch, False).to(torch.float32)
+            y = shd.local(batch["labels"], "batch").to(torch.float32)
+            be = shd.resolve_for_shape(("batch",), (B,))[0]
+            return shd.psum(_bce(z, y).sum(), be) / B
         logit = self.forward(params, batch)
         y = batch["labels"].to(torch.float32)
         z = logit.to(torch.float32)
-        # stable BCE-with-logits, as the reference writes it
-        return torch.mean(torch.clamp(z, min=0) - z * y
-                          + torch.log1p(torch.exp(-torch.abs(z))))
+        return torch.mean(_bce(z, y))
 
     def serve_step(self, params, batch, use_kernel: bool = False):
         if shd.device_mesh() is not None:

@@ -335,14 +335,15 @@ def batch_pspec_entry(batch: int, mesh) -> shd.Entry:
 def psum_matmul(x: torch.Tensor, w: torch.Tensor,
                 entry: shd.Entry) -> torch.Tensor:
     """``x @ w`` whose contracting dim is sharded over ``entry``: this
-    rank's partial product in fp32 (bf16 operands are exact there),
-    summed over the axes and rounded once to the operands' dtype, as one
-    device's GEMM rounds its fp32 accumulator once.  With ``entry`` None
-    (the dim whole) it is :func:`matmul`."""
+    rank's partial product in fp32 at least (bf16 operands are exact
+    there), summed over the axes and rounded once to the operands'
+    dtype, as one device's GEMM rounds its fp32 accumulator once.  With
+    ``entry`` None (the dim whole) it is :func:`matmul`."""
     if entry is None:
         return matmul(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
-    return shd.psum(matmul(x.float(), w.float()), entry).to(dt)
+    wide = torch.promote_types(dt, torch.float32)
+    return shd.psum(matmul(x.to(wide), w.to(wide)), entry).to(dt)
 
 
 def mesh_heads(x: torch.Tensor, w, names) -> torch.Tensor:

@@ -260,6 +260,17 @@ class Zamba2Model:
                                               dt, dev)
         return params
 
+    def param_specs(self) -> Dict:
+        """The logical-name tree of the parameters (``optimizer.
+        state_specs`` reads it); its mesh branches wait for ROADMAP
+        Queue 1 item 8c."""
+        mt = mamba2_table(self.cfg)
+        specs = pm.table_specs(self._top_table())
+        specs["groups"] = pm.table_specs(mt, prefix=("layers", "layers"))
+        specs["tail"] = pm.table_specs(mt, prefix=("layers",))
+        specs["shared_attn"] = pm.table_specs(self._attn_block_table())
+        return specs
+
     def param_shapes(self, dtype: Optional[torch.dtype] = None) -> Dict:
         dt = dtype or tfm._dtype(self.cfg.param_dtype)
         mt = mamba2_table(self.cfg)

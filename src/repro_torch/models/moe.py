@@ -79,10 +79,16 @@ def moe_table(cfg) -> dict:
     return t
 
 
-def _route(x2d: torch.Tensor, router: torch.Tensor, cfg):
+def _route(x2d: torch.Tensor, router: torch.Tensor, cfg,
+           tok_entry: shd.Entry = None):
     """Router logits -> (weights (T, k) in x's dtype, ids (T, k), aux).
     Scores are fp32; padded experts are masked with -inf before the
-    softmax, then top-k and renormalisation."""
+    softmax, then top-k and renormalisation.
+
+    On a mesh whose ranks route the blocks of the tokens sharded over
+    ``tok_entry``, each expert's pair count and probability sum are
+    psummed over those axes before the aux loss, which then covers every
+    token of the global batch, as the reference's (GSPMD) does."""
     m = cfg.moe
     E, Ep = m.num_experts, m.padded_experts
     logits = x2d.float() @ router.float()
@@ -94,8 +100,14 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, cfg):
     w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)
     # load-balancing aux loss (Switch-style) over real experts
     hits = ids[..., None] == torch.arange(Ep, device=x2d.device)
-    density = hits.float().mean(dim=(0, 1))[:E]
-    mean_prob = probs[:, :E].mean(dim=0)
+    if tok_entry is None:
+        density = hits.float().mean(dim=(0, 1))[:E]
+        mean_prob = probs[:, :E].mean(dim=0)
+    else:
+        T = x2d.shape[0] * shd.entry_index(tok_entry)[1]
+        density = shd.psum(hits.float().sum(dim=(0, 1))[:E],
+                           tok_entry) / (T * m.top_k)
+        mean_prob = shd.psum(probs[:, :E].sum(dim=0), tok_entry) / T
     aux = E * torch.sum(density * mean_prob)
     return w.to(x2d.dtype), ids, aux
 
@@ -177,7 +189,7 @@ def _moe_local(x2d: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
 
 def moe_apply(p: dict, x: torch.Tensor, cfg, *,
               capacity_factor: Optional[float] = None,
-              batch_entry: shd.Entry = None):
+              batch_entry: shd.Entry = None, train: bool = False):
     """MoE FFN. x: (B, S, d) (or (B, 1, d) decode). Returns (y, aux).
 
     The capacity uses the real expert count (the padded experts are
@@ -186,14 +198,18 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, *,
 
     Under a DeviceMesh ``x`` is this rank's block of the batch, sharded
     over the mesh axes ``batch_entry`` (None: the whole batch), and ``y``
-    the same block; ``aux`` then covers the tokens this rank routed.
+    the same block.  With ``train`` (the loss) ``aux`` covers every
+    token of the global batch (the experts' counts and probability sums
+    psummed over the ranks that route the token blocks), the same value
+    on every rank; serving discards ``aux`` and skips those psums, so
+    there it covers the tokens this rank routed.
     """
     B, S, d = x.shape
     m = cfg.moe
     if capacity_factor is None:
         capacity_factor = m.capacity_factor
     if shd.device_mesh() is not None:
-        return _moe_mesh(p, x, cfg, capacity_factor, batch_entry)
+        return _moe_mesh(p, x, cfg, capacity_factor, batch_entry, train)
     x2d = x.reshape(B * S, d)
     w, ids, aux = _route(x2d, p["router"], cfg)
     cap = max(8, int((B * S * m.top_k / m.num_experts) * capacity_factor))
@@ -234,7 +250,7 @@ def _reblock(t: torch.Tensor, src: shd.Entry, dst: shd.Entry) -> torch.Tensor:
 
 
 def _moe_mesh(p: dict, x: torch.Tensor, cfg, capacity_factor: float,
-              batch_entry: shd.Entry):
+              batch_entry: shd.Entry, train: bool = False):
     """The mesh branch: expert parallelism over ``model`` when the
     experts rule maps there and the padded experts divide it, else every
     rank dispatches every token to every expert."""
@@ -250,7 +266,8 @@ def _moe_mesh(p: dict, x: torch.Tensor, cfg, capacity_factor: float,
     # without EP its dispatch is global
     tok_entry = batch_pspec_entry(T_tok, mesh) if use_ep else None
     x2d = _reblock(x.reshape(B * S, d), batch_entry, tok_entry)
-    w, ids, aux = _route(x2d, shd.local(p["router"], "embed", None), cfg)
+    w, ids, aux = _route(x2d, shd.local(p["router"], "embed", None), cfg,
+                         tok_entry if train else None)
     names = ("experts", None, None)
     wg, wu, wo = (shd.local(p[k], *names) for k in ("wi_gate", "wi_up", "wo"))
     t_loc = x2d.shape[0]

@@ -191,6 +191,15 @@ class RWKV6Model:
                                          stack=self.cfg.num_layers)
         return params
 
+    def param_specs(self) -> Dict:
+        """The logical-name tree of the parameters (``optimizer.
+        state_specs`` reads it); its mesh branches wait for ROADMAP
+        Queue 1 item 8c."""
+        specs = pm.table_specs(self._top_table())
+        specs["layers"] = pm.table_specs(rwkv6_table(self.cfg),
+                                         prefix=("layers",))
+        return specs
+
     def param_shapes(self, dtype: Optional[torch.dtype] = None) -> Dict:
         dt = dtype or tfm._dtype(self.cfg.param_dtype)
         shapes = pm.shape_tree(self._top_table(), dt)

@@ -48,8 +48,17 @@ vocab-parallel.  Decode keeps the cache sequence-sharded over ``model``
 attention weights on their ``model``-sharded d_model dims.  Parameters,
 inputs and caches are DTensors or plain whole tensors; the logits come
 back placed ``("batch", "seq", "vocab")`` and the cache as
-``cache_logical`` says.  Training on a mesh waits for ROADMAP Queue 1
-item 8b.
+``cache_logical`` says.
+
+Training on a mesh (``train_loop.make_sharded_train_step``): ``loss``
+takes the same branches with the blocked attention on the local heads
+(head-TP) or the local rows (context parallelism), never a kernel; the
+CE is vocab-parallel (``cross_entropy_mesh``: a pmax shift, a psum of
+``sum(exp)`` and of the label's logit from the rank that owns it) and
+its sum over this rank's batch block is psummed over the batch axes
+before the division by the global count; the MoE aux covers every
+rank's tokens.  The collectives are differentiated by their transposes
+(``distributed.sharding``), so every rank's loss is the global one.
 """
 from __future__ import annotations
 
@@ -85,14 +94,17 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 def _remat(fn: Callable, mode: str) -> Callable:
     """``fn`` checkpointed as the reference's ``_remat`` does: ``"full"``
     recomputes everything in the backward, ``"dots"`` keeps the matrix
-    products' outputs and recomputes the rest, ``"none"`` keeps all."""
+    products' outputs and recomputes the rest, ``"none"`` keeps all.
+    The recomputation runs under the mesh active here
+    (``sharding.bind_mesh``)."""
     if mode == "none":
         return fn
     kw = {}
     if mode == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _DOTS)
-    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+    return functools.partial(checkpoint, shd.bind_mesh(fn),
+                             use_reentrant=False, **kw)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -110,6 +122,31 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     # no mesh a gather picks the same element, so the same bits, without
     # a pass over the (..., Vp) logits
     ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return lse - ll
+
+
+def cross_entropy_mesh(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab_real: int, entry: shd.Entry) -> torch.Tensor:
+    """:func:`cross_entropy` of logits whose vocab dim is sharded over
+    ``entry`` (vocab-parallel): ``logits`` is this rank's (..., Vp/n)
+    block at vocab offset ``i * Vp/n``.  A pmax of the block's max is
+    the shift (no gradient flows through it: the logsumexp does not
+    depend on it), a psum of ``sum(exp)`` gives the logsumexp, and the
+    rank that owns each label's logit contributes it to a psum.  The
+    padded-vocab mask reads the global vocab index."""
+    logits = logits.float()
+    i, _ = shd.entry_index(entry)
+    Vl = logits.shape[-1]
+    off = i * Vl
+    col = off + torch.arange(Vl, device=logits.device)
+    logits = torch.where(col < vocab_real, logits, -1e30)
+    m = shd.pmax(logits.detach().amax(-1), entry)
+    se = shd.psum(torch.exp(logits - m[..., None]).sum(-1), entry)
+    lse = m + torch.log(se)
+    t = labels.long() - off
+    hit = (t >= 0) & (t < Vl)
+    ll = logits.gather(-1, t.clamp(0, Vl - 1)[..., None])[..., 0]
+    ll = shd.psum(torch.where(hit, ll, 0.0), entry)
     return lse - ll
 
 
@@ -253,10 +290,7 @@ class DecoderLM:
         attention, else the kernel."""
         cfg = self.cfg
         if shd.device_mesh() is not None:
-            if train:
-                raise NotImplementedError(
-                    "training on a mesh waits for ROADMAP Queue 1 item 8b")
-            return self._attention_mesh(lp, x, pos)
+            return self._attention_mesh(lp, x, pos, train)
         q, k, v = L._project_qkv(lp, x, cfg, pos)
         kv = (k, v)
         if train:
@@ -271,10 +305,11 @@ class DecoderLM:
         out = o.flatten(-2) @ lp["wo"].flatten(0, 1)
         return out, kv
 
-    def _attention_mesh(self, lp, x, pos):
-        """Prefill attention on a mesh: this rank's heads under head-TP,
-        its query rows under context parallelism; the cache's K/V with
-        every kv head."""
+    def _attention_mesh(self, lp, x, pos, train: bool = False):
+        """Prefill (or train) attention on a mesh: this rank's heads under
+        head-TP, its query rows under context parallelism; the cache's
+        K/V with every kv head.  ``train`` takes the blocked attention
+        where serving takes the kernel."""
         cfg = self.cfg
         Hp, Hkv = cfg.padded_heads, cfg.num_kv_heads
         hspec = shd.resolve_for_shape(("heads",), (Hp,))[0]
@@ -292,11 +327,11 @@ class DecoderLM:
             G, h = Hp // Hkv, Hp // n
             k = k.repeat_interleave(G, dim=2).narrow(2, i * h, h).contiguous()
             v = v.repeat_interleave(G, dim=2).narrow(2, i * h, h).contiguous()
-            o = L.flash_attention(q, k, v, causal=True)
+            o = self._local_attention(q, k, v, train)
         elif L.use_context_parallel(shd.device_mesh(), q.shape[1]):
             o = L.context_parallel_attention(q, k, v, causal=True)
         else:
-            o = L.flash_attention(q, k, v, causal=True)
+            o = self._local_attention(q, k, v, train)
         mask = L.head_mask(cfg, o.dtype, o.device)
         if mask is not None:
             mask = mask.narrow(0, i * (Hp // n), Hp // n)
@@ -304,13 +339,24 @@ class DecoderLM:
         out = L.mesh_out(o, lp["wo"], ("heads", "head_dim", "attn_dout_c"))
         return out, kv
 
-    def _ffn(self, lp, hn, batch_entry: shd.Entry = None):
+    @staticmethod
+    def _local_attention(q, k, v, train: bool):
+        """Causal attention on this rank's heads: the blocked attention
+        in training (the kernel has no backward), else the kernel."""
+        if train:
+            return L.flash_attention_blocked(
+                q, k, v, causal=True, q_block=min(512, q.shape[1]),
+                kv_block=min(1024, k.shape[1]))
+        return L.flash_attention(q, k, v, causal=True)
+
+    def _ffn(self, lp, hn, batch_entry: shd.Entry = None,
+             train: bool = False):
         """The layer's MLP, or its MoE FFN -> (out, aux loss).  On a
         mesh ``hn`` is this rank's batch block, sharded over
         ``batch_entry``."""
         if self.cfg.moe is not None:
             return moe_mod.moe_apply(lp["moe"], hn, self.cfg,
-                                     batch_entry=batch_entry)
+                                     batch_entry=batch_entry, train=train)
         if shd.device_mesh() is not None:
             return L.mesh_mlp(lp["mlp"], hn), 0.0
         return L.mlp_apply(lp["mlp"], hn), 0.0
@@ -323,7 +369,7 @@ class DecoderLM:
                                   cfg.norm_eps), pos, train)
         x = x + h
         h2, aux = self._ffn(lp, L.rmsnorm(x, shd.local(lp["ln2"], "embed"),
-                                          cfg.norm_eps), batch_entry)
+                                          cfg.norm_eps), batch_entry, train)
         return x + h2, kv, aux
 
     def _layers(self, params) -> list:
@@ -365,17 +411,19 @@ class DecoderLM:
         ``cfg.remat`` says."""
         cfg = self.cfg
         x, pos = self._embed_inputs(params, batch)
+        be = self._batch_entry(batch)
 
         def body(lp, x):
-            y, _, aux = self._layer(lp, x, pos, train)
+            y, _, aux = self._layer(lp, x, pos, train, be)
             return y, aux
 
         body = _remat(body, cfg.remat if train else "none")
         total = 0.0
-        for lp in pm.unstack(params["layers"], cfg.num_layers):
+        for lp in self._layers(params):
             x, aux = body(lp, x)
             total = total + aux
-        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), total
+        return L.rmsnorm(x, shd.local(params["final_norm"], "embed"),
+                         cfg.norm_eps), total
 
     def _logits(self, params, x):
         """Logits over the vocab; on a mesh over this rank's vocab block."""
@@ -384,6 +432,15 @@ class DecoderLM:
                              tied=True)
         return L.unembed(x, shd.local(params["head"], "embed", "vocab"),
                          tied=False)
+
+    def _vocab_entry(self, params) -> shd.Entry:
+        """The mesh axes the logits' vocab dim is sharded over (None
+        without a mesh)."""
+        if shd.device_mesh() is None:
+            return None
+        if self.cfg.tie_embeddings:
+            return shd.spec(params["embed"], "vocab", "embed")[0]
+        return shd.spec(params["head"], "embed", "vocab")[1]
 
     def _place_logits(self, batch, logits):
         """On a mesh, this rank's logits block placed ("batch", "seq",
@@ -399,9 +456,22 @@ class DecoderLM:
         a VLM's text positions only), plus the MoE router aux loss."""
         cfg = self.cfg
         x, aux = self.forward(params, batch, train=True)
-        labels, mask = batch["labels"], batch.get("loss_mask")
+        on_mesh = shd.device_mesh() is not None
+        be = self._batch_entry(batch)
+        labels = shd.local(batch["labels"], "batch", None)
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = shd.local(mask, "batch", None)
         if cfg.family == "vlm":  # loss only over text positions
             x = x[:, -labels.shape[1]:]
+
+        def ce_of(xc, lc):
+            if on_mesh:
+                return cross_entropy_mesh(self._logits(params, xc), lc,
+                                          cfg.vocab_size,
+                                          self._vocab_entry(params))
+            return cross_entropy(self._logits(params, xc), lc,
+                                 cfg.vocab_size)
 
         # CE in chunks of positions to bound the fp32 logits, each chunk
         # checkpointed: its logits are otherwise kept for the backward
@@ -409,23 +479,23 @@ class DecoderLM:
         chunk = min(1024, S)
         nc = S // chunk if S % chunk == 0 else 1
         if nc > 1:
-            def ce_chunk(xc, lc):
-                return cross_entropy(self._logits(params, xc), lc,
-                                     cfg.vocab_size)
+            ce_of = shd.bind_mesh(ce_of)
             ce = torch.cat([
-                checkpoint(ce_chunk, x[:, c * chunk:(c + 1) * chunk],
+                checkpoint(ce_of, x[:, c * chunk:(c + 1) * chunk],
                            labels[:, c * chunk:(c + 1) * chunk],
                            use_reentrant=False) for c in range(nc)], dim=1)
         else:
-            ce = cross_entropy(self._logits(params, x), labels,
-                               cfg.vocab_size)
+            ce = ce_of(x, labels)
+        # on a mesh the sums run over this rank's batch block, then a
+        # psum over the batch axes gives every rank the global ones
         if mask is not None:
             mask = mask.to(torch.float32)
             ce = ce * mask
-            denom = mask.sum().clamp(min=1.0)
+            msum = shd.psum(mask.sum(), be) if on_mesh else mask.sum()
+            denom = msum.clamp(min=1.0)
         else:
-            denom = ce.numel()
-        total = ce.sum() / denom
+            denom = ce.numel() * (shd.entry_index(be)[1] if on_mesh else 1)
+        total = (shd.psum(ce.sum(), be) if on_mesh else ce.sum()) / denom
         if cfg.moe is not None:
             total = total + cfg.moe.router_aux_loss * aux
         return total

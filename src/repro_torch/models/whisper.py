@@ -100,6 +100,17 @@ class WhisperModel:
             gen, _dec_layer_table(cfg), dt, dev, stack=cfg.num_layers)
         return params
 
+    def param_specs(self) -> Dict:
+        """The logical-name tree of the parameters (``optimizer.
+        state_specs`` reads it); its mesh branches wait for ROADMAP
+        Queue 1 item 8c."""
+        specs = pm.table_specs(self._top_table())
+        specs["enc_layers"] = pm.table_specs(_enc_layer_table(self.cfg),
+                                             prefix=("layers",))
+        specs["dec_layers"] = pm.table_specs(_dec_layer_table(self.cfg),
+                                             prefix=("layers",))
+        return specs
+
     def param_shapes(self, dtype: Optional[torch.dtype] = None) -> Dict:
         cfg = self.cfg
         dt = dtype or tfm._dtype(cfg.param_dtype)

@@ -132,18 +132,6 @@ def test_resolve_for_shape_matches(arch, mode, mesh):
         shape == (1, 1)
 
 
-def test_build_program_train_mode_waits_for_8b():
-    """``build_program``'s train mode raises and names the ROADMAP item
-    it waits for; prefill and decode build (their runs are below)."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch.steps import build_program
-
-    cfg = tconfigs.get_reduced("smollm-135m")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        build_program(cfg, ShapeConfig("t", 64, 4, "train"),
-                      {"data": 1, "model": 1})
-
-
 # ------------------------------------------------------------- meshes
 def _lm_cfg(pkg, arch):
     cfg = pkg.get_reduced(arch).replace(dtype="float32",
@@ -317,6 +305,28 @@ def lm_cfg(arch):
                                                   capacity_factor=8.0))
     return cfg
 
+def layout(tree):
+    # every leaf of a placed tree: [shape, dtype, one entry per dim (the
+    # mesh axes sharding it, in mesh order), local shape, local device]
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}/{k}")
+        elif t is not None:
+            dims = t.device_mesh.mesh_dim_names
+            ent = []
+            for dim in range(t.dim()):
+                axes = [dims[i] for i, p in enumerate(t.placements)
+                        if p.is_shard(dim)]
+                ent.append(None if not axes else axes[0] if len(axes) == 1
+                           else axes)
+            out[path] = [list(t.shape), str(t.dtype).split(".")[-1], ent,
+                         list(t.to_local().shape), t.to_local().device.type]
+    walk(tree, "")
+    return json.dumps(out)
+
 def greedy(logits):
     return logits[:, -1].argmax(-1)[:, None].to(torch.int32)
 
@@ -402,6 +412,10 @@ try:
             out[f"{name}/{arch}/decode"] = np.stack(dl)
             out[f"{name}/{arch}/tokens"] = torch.cat(tl, 1).numpy()
             out[f"{name}/{arch}/decode_k"] = cache["k"].to_local().numpy()
+            _, targs, _ = build_program(cfg, ShapeConfig("t", S, B, "train"),
+                                        mesh)
+            out[f"{name}/{arch}/train_layout"] = np.array(
+                [layout(t) for t in targs])
 
         mcfg = configs.get_reduced("qwen2-moe-a2.7b").replace(
             dtype="float32", param_dtype="float32")
@@ -439,6 +453,9 @@ try:
         cfg = configs.get_reduced("rm1")
         model = registry.build(cfg)
         params = tree("rm1")
+        _, targs, _ = build_program(cfg, ShapeConfig("t", 1, spec["dlrm_batch"],
+                                                     "train"), mesh)
+        out[f"{name}/rm1/train_layout"] = np.array([layout(t) for t in targs])
         reqs = [Request(i, {"dense": inputs[f"rm1/dense{i}"],
                             "indices": inputs[f"rm1/idx{i}"]},
                         inputs[f"rm1/idx{i}"].shape[0], 0.0)
@@ -660,3 +677,80 @@ def test_kernel_wrappers_refuse_dtensor(mesh_runs, mesh):
     _, ranks = mesh_runs
     for res in ranks:
         assert res[f"{mesh}/refused"].tolist() == [True] * 5
+
+
+def _entries(spec, ndim):
+    """A PartitionSpec's entries as JSON-like lists, padded to ``ndim``."""
+    out = [list(e) if isinstance(e, tuple) else e for e in tuple(spec)]
+    return out + [None] * (ndim - len(out))
+
+
+def _reference_train_layout(arch, shape):
+    """The reference's ``build_program(train)`` example args and their
+    resolved specs, in pure Python (its rule resolution reads only the
+    mesh's shape): params resolved for their shapes, the ZeRO-1 state
+    by ``tree_shardings`` (as its ``build_program`` resolves it), the
+    batch for its shapes."""
+    from repro.configs.base import ShapeConfig
+    from repro.train import optimizer as jopt
+
+    cfg = (jconfigs.get_reduced("rm1") if arch == "rm1"
+           else _lm_cfg(jconfigs, arch))
+    model = jregistry.build(cfg)
+    mesh = _ShapeMesh(shape)
+    rules = jregistry.make_rules(cfg, mesh, "train")
+    sc = (ShapeConfig("t", 1, 8, "train") if arch == "rm1"
+          else ShapeConfig("t", PROMPT, BATCH, "train"))
+    opt_cfg = jopt.OptConfig()
+    with jshd.use_mesh(mesh, rules):
+        pshapes = model.param_shapes()
+        specs = model.param_specs()
+        sspecs = jopt.state_specs(opt_cfg, specs, pshapes)
+        oshapes = jax.eval_shape(lambda: jopt.init_state(opt_cfg, jax.tree.map(
+            lambda s: jax.numpy.zeros(s.shape, s.dtype), pshapes)))
+        params = {p: [list(s.shape), str(s.dtype), _entries(
+            jshd.resolve_for_shape(n, s.shape), len(s.shape))]
+            for (p, n), (_, s) in zip(_leaves(jax.tree.map(
+                lambda x: x, specs, is_leaf=lambda x: isinstance(x, tuple))),
+                _leaves(pshapes))}
+        state = {}
+        for key, names in sspecs.items():
+            if names is None:
+                continue
+            flat = ([("", names)] if isinstance(names, tuple)
+                    else list(_leaves(names)))
+            shp = oshapes[key]
+            shp = ([("", shp)] if not isinstance(shp, dict)
+                   else list(_leaves(shp)))
+            for (p, n), (_, s) in zip(flat, shp):
+                state[f"/{key}{p}"] = [list(s.shape), str(s.dtype), _entries(
+                    jshd.resolve(n), len(s.shape))]
+        in_logical = model.input_logical(sc)
+        batch = {f"/{k}": [list(v.shape), str(v.dtype), _entries(
+            jshd.resolve_for_shape(in_logical.get(k) or (None,) * len(
+                v.shape), v.shape), len(v.shape))]
+            for k, v in model.input_specs(sc).items()}
+    return params, state, batch
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS + ["rm1"])
+@pytest.mark.parametrize("mesh", list(RUN_MESHES))
+def test_build_program_train_mode(mesh_runs, mesh, arch):
+    """``build_program``'s train mode returns placed meta DTensors for
+    the params, the ZeRO-1 optimizer state and the batch: the shapes,
+    dtypes and resolved specs of the reference's ``build_program(train)``
+    (its ``ShapeDtypeStruct`` trees and ``in_shardings``), each rank's
+    local block the block of its coordinate."""
+    shape = RUN_MESHES[mesh]
+    want = _reference_train_layout(arch, shape)
+    sizes = dict(zip(("data", "model"), shape))
+    for res in mesh_runs[1]:
+        got = [json.loads(str(t)) for t in res[f"{mesh}/{arch}/train_layout"]]
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for path, (shp, dt, ent, loc, dev) in g.items():
+                assert [shp, dt, ent] == w[path], path
+                cut = [int(np.prod([sizes[a] for a in (
+                    [e] if isinstance(e, str) else e or [])])) for e in ent]
+                assert loc == [n // c for n, c in zip(shp, cut)], path
+                assert dev == "meta", path
