@@ -26,6 +26,8 @@ the reference's, and against the port's own single-device results.
   Adagrad for RM1) the parameters and the state, gathered whole, within
   1e-5.  One step with ``compress_grads=True``, and one with
   ``microbatches=2``, likewise.
+- ``run_train_loop(mesh=, rules=)`` on (2, 2) through a fault and a
+  restore against one device's loop.
 - Each collective's gradient in fp64 on gloo ranks against autograd of
   the whole-tensor function (``psum``, ``all_gather``, ``redistribute``
   from Shard to Replicate and back, ``local`` of a whole tensor,
@@ -70,6 +72,8 @@ COMPRESS_ARCH = "smollm-135m"        # the compress_grads step, on (2, 2)
 #: ``state_specs`` outside the mesh, which under smollm's FSDP rules
 #: gives a spec with ``data`` twice, and raises)
 ELASTIC_ARCHS = ["llama3-8b", "smollm-135m"]
+#: run_train_loop on (2, 2): steps, checkpoint period, the faulty step
+LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAULT_AT = 5, 2, 3
 
 
 class _ShapeMesh:
@@ -309,7 +313,9 @@ from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.models.transformer import params_from_reference
 from repro_torch.train import checkpoint as ckpt, optimizer as opt_mod
 from repro_torch.train.optimizer import OptConfig
-from repro_torch.train.train_loop import (make_train_step, value_and_grad,
+from repro_torch.data.queries import ShardedLoader, lm_batch
+from repro_torch.train.train_loop import (TrainLoopConfig, make_train_step,
+                                          run_train_loop, value_and_grad,
                                           value_and_grad_mesh)
 spec = json.loads(open(os.path.join(d, "spec.json")).read())
 inputs = np.load(os.path.join(d, "inputs.npz"))
@@ -581,6 +587,35 @@ try:
                         + [torch.equal(a, shd.full(b)) for a, b
                            in zip(tree_leaves(rs), tree_leaves(s))
                            if a is not None])
+            # the fault-tolerant loop on the mesh and on one device
+            arch = spec["compress_arch"]
+            cfg = cfg_of(configs, arch)
+            model = registry.build(cfg)
+            runs = [("mesh", make_host_mesh(shape[1], device="cpu"))]
+            if rank == 0:
+                runs.append(("one", None))
+            for tag, m in runs:
+                fired = []
+
+                def hook(step):
+                    if step == spec["loop_fault_at"] and not fired:
+                        fired.append(step)
+                        raise RuntimeError("injected node failure")
+
+                loader = ShardedLoader(lambda rng: lm_batch(
+                    cfg.vocab_size, 4, 16, rng), seed=2)
+                loop = TrainLoopConfig(
+                    steps=spec["loop_steps"], log_every=1,
+                    checkpoint_every=spec["loop_ckpt_every"],
+                    checkpoint_dir=os.path.join(d, f"loop-{tag}"))
+                rules = None if m is None else registry.make_rules(
+                    cfg, m, "train")
+                _, _, hist = run_train_loop(
+                    model, OptConfig(), loader, loop, mesh=m, rules=rules,
+                    params=tree(arch), fault_hook=hook,
+                    log_fn=lambda *a: None, device="cpu")
+                out[f"loop/{tag}"] = np.array(hist)
+                out[f"loop/{tag}/fired"] = np.array(fired)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not bad, bad
@@ -648,7 +683,8 @@ def train_runs(tmp_path_factory):
     spec = {"archs": ARCHS, "meshes": {k: list(v)
                                        for k, v in RUN_MESHES.items()},
             "compress_mesh": "2x2", "compress_arch": COMPRESS_ARCH,
-            "elastic_archs": ELASTIC_ARCHS}
+            "elastic_archs": ELASTIC_ARCHS, "loop_steps": LOOP_STEPS,
+            "loop_ckpt_every": LOOP_CKPT_EVERY, "loop_fault_at": LOOP_FAULT_AT}
     (d / "spec.json").write_text(json.dumps(spec))
     np.savez(d / "inputs.npz", **_inputs())
     for i, arch in enumerate(ARCHS):
@@ -831,6 +867,21 @@ def test_elastic_restore_onto_survivors(train_runs, arch):
         assert any(v[3] != v[0] for v in params.values())
         assert any("data" in json.dumps(v[2]) for p, v in state.items()
                    if p.startswith("/m/"))
+
+
+def test_run_train_loop_on_mesh(train_runs):
+    """``run_train_loop(mesh=, rules=)`` on (2, 2): a fault at step 3
+    restores the checkpoint of step 2 on every rank, and every logged
+    loss is within 1e-5 of one device's loop through the same fault."""
+    _, ranks, _ = train_runs
+    want = ranks[0]["loop/one"]
+    steps = [0, 1, 2, 2, 3, 4]          # step 2 again after the restore
+    assert want[:, 0].tolist() == steps
+    for res in ranks:
+        assert res["loop/mesh/fired"].tolist() == [LOOP_FAULT_AT]
+        got = res["loop/mesh"]
+        assert got[:, 0].tolist() == steps
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("mesh", list(RUN_MESHES))
