@@ -477,6 +477,15 @@ def local_tensor(x):
     return x.to_local() if isinstance(x, DTensor) else x
 
 
+def like(p, loc: torch.Tensor):
+    """``loc`` as the local tensor of a DTensor placed as ``p``, or
+    ``loc`` itself when ``p`` is a plain tensor."""
+    if not isinstance(p, DTensor):
+        return loc
+    return DTensor.from_local(loc, p.device_mesh, p.placements,
+                              shape=p.shape, stride=p.stride())
+
+
 def full(x):
     """The whole value of a DTensor (gathered on its own mesh), or ``x``."""
     if not isinstance(x, DTensor):

@@ -293,12 +293,7 @@ class DecoderLM:
             return self._attention_mesh(lp, x, pos, train)
         q, k, v = L._project_qkv(lp, x, cfg, pos)
         kv = (k, v)
-        if train:
-            o = L.flash_attention_blocked(
-                q, k, v, causal=True, q_block=min(512, q.shape[1]),
-                kv_block=min(1024, k.shape[1]))
-        else:
-            o = L.flash_attention(q, k, v, causal=True)
+        o = self._local_attention(q, k, v, train)
         mask = L.head_mask(cfg, o.dtype, o.device)
         if mask is not None:
             o = o * mask[None, None, :, None]
@@ -341,8 +336,9 @@ class DecoderLM:
 
     @staticmethod
     def _local_attention(q, k, v, train: bool):
-        """Causal attention on this rank's heads: the blocked attention
-        in training (the kernel has no backward), else the kernel."""
+        """Causal attention on this device's (or rank's) heads: the
+        blocked attention in training (the kernel has no backward), else
+        the kernel."""
         if train:
             return L.flash_attention_blocked(
                 q, k, v, causal=True, q_block=min(512, q.shape[1]),

@@ -29,8 +29,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from torch.distributed.tensor import DTensor
-
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import sharding as shd
@@ -58,16 +56,12 @@ def value_and_grad(model, params, batch):
 
 def _leaf_grad(p, g, mesh):
     """A leaf's gradient summed over the mesh dims the leaf is
-    replicated on (in fp32 at least, rounded once to its dtype), as a
-    DTensor in the leaf's placements (a plain leaf: replicated on every
-    dim, and a plain gradient)."""
+    replicated on (in fp32 at least, rounded once to its dtype), in the
+    leaf's placements (a plain leaf: replicated on every dim, and a
+    plain gradient)."""
     _, rep = shd.placed_dims(p)
     wide = torch.promote_types(g.dtype, torch.float32)
-    g = shd._psum_dims(g.to(wide), mesh, rep).to(g.dtype)
-    if not isinstance(p, DTensor):
-        return g
-    return DTensor.from_local(g, mesh, p.placements, shape=p.shape,
-                              stride=p.stride())
+    return shd.like(p, shd._psum_dims(g.to(wide), mesh, rep).to(g.dtype))
 
 
 def value_and_grad_mesh(model, params, batch):
@@ -83,15 +77,8 @@ def value_and_grad_mesh(model, params, batch):
     locs = [shd.local_tensor(p).detach().requires_grad_(True)
             for p in leaves]
     it = iter(locs)
-
-    def rebuild(p):
-        loc = next(it)
-        if not isinstance(p, DTensor):
-            return loc
-        return DTensor.from_local(loc, p.device_mesh, p.placements,
-                                  shape=p.shape, stride=p.stride())
-
-    loss = model.loss(tree_map(rebuild, params), batch)
+    loss = model.loss(tree_map(lambda p: shd.like(p, next(it)), params),
+                      batch)
     grads = torch.autograd.grad(loss / mesh.size(), locs, allow_unused=True,
                                 materialize_grads=True)
     with torch.no_grad():
@@ -100,29 +87,36 @@ def value_and_grad_mesh(model, params, batch):
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
-def make_train_step(model, opt_cfg: OptConfig, microbatches: int = 1):
+def make_train_step(model, opt_cfg: OptConfig, microbatches: int = 1,
+                    place: Optional[Callable] = None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
-    metrics).  Microbatching splits the batch on dim 0 and accumulates
-    the loss and the gradients in fp32, in microbatch order, then divides
-    by their count, as the reference's ``lax.scan`` does."""
+    metrics).  Microbatching splits the batch on dim 0 (a DTensor leaf
+    made whole first) and accumulates the loss and the gradients in
+    fp32, in microbatch order, then divides by their count, as the
+    reference's ``lax.scan`` does.  ``place`` maps each (micro)batch to
+    what the loss takes (default: itself; on a mesh, this rank's blocks
+    placed, :func:`make_sharded_train_step`)."""
+    place = place or (lambda b: b)
 
     def step(params, opt_state, batch):
         if microbatches == 1:
-            loss, grads = value_and_grad(model, params, batch)
+            loss, grads = value_and_grad(model, params, place(batch))
         else:
-            mbs = tree_map(lambda x: x.reshape(
+            mbs = tree_map(lambda x: shd.full(x).reshape(
                 (microbatches, x.shape[0] // microbatches) + x.shape[1:]),
                 batch)
             loss = 0.0
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: shd.like(p, torch.zeros(
+                shd.local_tensor(p).shape, dtype=torch.float32,
+                device=p.device)), params)
             for i in range(microbatches):
                 mb_loss, mb_grads = value_and_grad(
-                    model, params, tree_map(lambda x: x[i], mbs))
+                    model, params, place(tree_map(lambda x: x[i], mbs)))
                 loss = loss + mb_loss
-                tree_map(lambda acc, g: acc.add_(g), grads, mb_grads)
+                tree_map(lambda acc, g: shd.local_tensor(acc).add_(
+                    shd.local_tensor(g)), grads, mb_grads)
             loss = loss / microbatches
-            grads = tree_map(lambda g: g / microbatches, grads)
+            tree_map(lambda g: shd.local_tensor(g).div_(microbatches), grads)
         params, opt_state = opt_mod.apply_updates(
             opt_cfg, params, grads, opt_state)
         metrics = {"loss": loss.float(),
@@ -132,79 +126,30 @@ def make_train_step(model, opt_cfg: OptConfig, microbatches: int = 1):
     return step
 
 
-def _place_batch(batch, logical, microbatches: int):
-    """The global ``batch`` as ``microbatches`` trees of placed
-    DTensors: this rank's block of each microbatch under the model's
-    ``input_logical`` names (a DTensor leaf made whole first when the
-    batch is split)."""
-    def names(k, v):
-        return logical.get(k) or (None,) * v.dim()
-
-    if microbatches == 1:
-        return [{k: shd.place(v, names(k, v)) for k, v in batch.items()}]
-    whole = {k: shd.full(v) for k, v in batch.items()}
-    out = []
-    for i in range(microbatches):
-        mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                           + v.shape[1:])[i] for k, v in whole.items()}
-        out.append({k: shd.place(v, names(k, v)) for k, v in mb.items()})
-    return out
-
-
 def make_sharded_train_step(model, opt_cfg: OptConfig, mesh, rules,
                             shape: ShapeConfig, microbatches: int = 1):
-    """The train step on ``mesh`` under ``rules``: step(params,
+    """:func:`make_train_step` on ``mesh`` under ``rules``: step(params,
     opt_state, batch) -> (params, opt_state, metrics), with ``params``
     placed under the model's ``param_specs`` and ``opt_state`` under
     ``optimizer.state_specs`` (DTensors; the counterpart of the
     reference's ``in_shardings``), ``batch`` the global batch (plain
-    tensors or DTensors), of which each rank takes its block under
-    ``model.input_logical(shape)``.  The parameters and state are
-    written in place (``donate_argnums``); ``metrics`` are the global
-    loss and gradient norm, the same on every rank.  Microbatches split
-    the global batch on dim 0 and accumulate as on one device."""
+    tensors or DTensors), of which each rank takes its block of each
+    microbatch under ``model.input_logical(shape)``.  The parameters and
+    state are written in place (``donate_argnums``); ``metrics`` are the
+    global loss and gradient norm, the same on every rank."""
     logical = model.input_logical(shape)
+
+    def place(batch):
+        return {k: shd.place(v, logical.get(k) or (None,) * v.dim())
+                for k, v in batch.items()}
+
+    inner = make_train_step(model, opt_cfg, microbatches, place)
 
     def step(params, opt_state, batch):
         with shd.use_mesh(mesh, rules):
-            mbs = _place_batch(batch, logical, microbatches)
-            if microbatches == 1:
-                loss, grads = value_and_grad_mesh(model, params, mbs[0])
-            else:
-                loss, grads = 0.0, None
-                for mb in mbs:
-                    mb_loss, mb_grads = value_and_grad_mesh(model, params, mb)
-                    loss = loss + mb_loss
-                    if grads is None:
-                        grads = tree_map(lambda g: _f32(g), mb_grads)
-                    else:
-                        tree_map(lambda acc, g: shd.local_tensor(acc).add_(
-                            shd.local_tensor(g)), grads, mb_grads)
-                loss = loss / microbatches
-                grads = tree_map(lambda g: _scaled(g, 1 / microbatches),
-                                 grads)
-            params, opt_state = opt_mod.apply_updates(
-                opt_cfg, params, grads, opt_state)
-            metrics = {"loss": loss.float(),
-                       "grad_norm": opt_mod.global_norm(grads)}
-        return params, opt_state, metrics
+            return inner(params, opt_state, batch)
 
     return step
-
-
-def _f32(g):
-    """An fp32 copy of a gradient (a DTensor's local tensor copied)."""
-    if not isinstance(g, DTensor):
-        return g.float().clone()
-    return DTensor.from_local(g.to_local().float().clone(), g.device_mesh,
-                              g.placements, shape=g.shape, stride=g.stride())
-
-
-def _scaled(g, f: float):
-    if not isinstance(g, DTensor):
-        return g * f
-    return DTensor.from_local(g.to_local() * f, g.device_mesh, g.placements,
-                              shape=g.shape, stride=g.stride())
 
 
 def train_shape(batch) -> ShapeConfig:

@@ -33,9 +33,11 @@ the reference's, and against the port's own single-device results.
   from Shard to Replicate and back, ``local`` of a whole tensor,
   ``layers.psum_matmul``), and ``pmax`` refusing a grad-requiring input.
 - With grad mode off every serving mesh path (LM prefill and decode
-  under head-TP, FSDP + CP and EP; the DLRM's Fsum) is bitwise what it
-  is with the collectives of the serving-only port (the plain c10d
-  calls, no autograd), which the ranks patch in for a second run.
+  under head-TP, FSDP + CP and EP; the DLRM's Fsum on both pooling
+  paths) is bitwise what the serving-only port's code gives: the ranks
+  patch in, for a second run, its versions of everything training
+  changed on those paths (the collectives as plain c10d calls with no
+  autograd, ``psum_matmul``, the DLRM's mesh pooling).
 """
 import dataclasses
 import json
@@ -425,8 +427,14 @@ def collective_cases(mesh):
     return out
 
 # ----------------------------------- serving bitwise with grad mode off
-def parent_collectives():
-    # the serving-only port's collectives: plain c10d calls, no autograd
+def parent_serving():
+    # the serving-only port's code for everything training changed on the
+    # serving path: the collectives (plain c10d calls, no autograd),
+    # psum_matmul (widening through .float()) and the DLRM's mesh pooling
+    # (masked slots gathered from row 0)
+    from repro_torch.models import dlrm, moe
+    from repro_torch.kernels import ops
+
     def psum(x, entry):
         mesh, dims = shd._mesh_dims(entry)
         for i in dims:
@@ -439,8 +447,48 @@ def parent_collectives():
             x = shd._gather(x, mesh, i, dim)
         return x
 
-    return {"psum": psum, "all_gather": all_gather,
-            "_gather_ad": lambda x, mesh, i, dim: shd._gather(x, mesh, i, dim)}
+    def psum_matmul(x, w, entry):
+        if entry is None:
+            return L.matmul(x, w)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return shd.psum(L.matmul(x.float(), w.float()), entry).to(dt)
+
+    def _pool_mesh(self, emb, idx, use_kernel):
+        tspec, rspec, _ = shd.spec(emb, *dlrm.EMBED_LOGICAL)
+        blk = shd.local(emb, *dlrm.EMBED_LOGICAL)
+        T, R, D = emb.shape
+        T_loc, R_loc = blk.shape[:2]
+        t0 = shd.entry_index(tspec)[0] * T_loc
+        r0 = shd.entry_index(rspec)[0] * R_loc
+        idx = shd.full(idx).to(torch.int64)
+        tix = torch.arange(T, device=idx.device)[None, :, None]
+        if use_kernel:
+            g = (tix * R + idx.clamp(min=0)).clamp(max=T * R - 1)
+            t, r = g // R, g % R
+        else:
+            t, r = tix, idx.clamp(max=R - 1)
+        mine = ((idx >= 0) & (t >= t0) & (t < t0 + T_loc)
+                & (r >= r0) & (r < r0 + R_loc))
+        flat = torch.where(mine, (t - t0) * R_loc + (r - r0), -1)
+        table = blk.reshape(T_loc * R_loc, D)
+        if use_kernel:
+            part = ops.embedding_bag_fused_flat(
+                table, torch.zeros(T, dtype=torch.int32, device=idx.device),
+                flat.to(torch.int32))
+        else:
+            part = torch.where(mine[..., None], table[flat.clamp(min=0)],
+                               0.0).sum(dim=2)
+        pooled = shd.psum(shd.psum(part, tspec), rspec)
+        if not use_kernel:
+            pooled = pooled.masked_fill((idx >= R).any(dim=2, keepdim=True),
+                                        float("nan"))
+        return pooled.to(emb.dtype)
+
+    return [(shd, "psum", psum), (shd, "all_gather", all_gather),
+            (shd, "_gather_ad",
+             lambda x, mesh, i, dim: shd._gather(x, mesh, i, dim)),
+            (L, "psum_matmul", psum_matmul), (moe, "psum_matmul", psum_matmul),
+            (dlrm.DLRMModel, "_pool_mesh", _pool_mesh)]
 
 def serve_outputs(mesh):
     outs = []
@@ -479,14 +527,15 @@ def serve_outputs(mesh):
 
 def serving_bitwise(mesh):
     now = serve_outputs(mesh)
-    saved = {k: getattr(shd, k) for k in ("psum", "all_gather", "_gather_ad")}
-    for k, v in parent_collectives().items():
-        setattr(shd, k, v)
+    patches = parent_serving()
+    saved = [(o, k, getattr(o, k)) for o, k, _ in patches]
+    for o, k, v in patches:
+        setattr(o, k, v)
     try:
         before = serve_outputs(mesh)
     finally:
-        for k, v in saved.items():
-            setattr(shd, k, v)
+        for o, k, v in saved:
+            setattr(o, k, v)
     return np.array([torch.equal(a, b) and a.grad_fn is None
                      for a, b in zip(now, before)])
 
@@ -914,7 +963,8 @@ def test_pmax_refuses_grad(train_runs, mesh):
 def test_serving_paths_bitwise_with_grad_off(train_runs, mesh):
     """With grad mode off, smollm's and qwen2-moe's mesh prefill and
     decode and RM1's mesh scores (both pooling paths) are bitwise what
-    the plain c10d collectives give, with no autograd graph."""
+    the serving-only port's collectives, ``psum_matmul`` and mesh
+    pooling give, with no autograd graph."""
     _, ranks, _ = train_runs
     for res in ranks:
         ok = res[f"{mesh}/serve_bitwise"]
