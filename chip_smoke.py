@@ -222,8 +222,24 @@ with a non-zero exit and no result line):
    Copies at full width, 2 layers: smollm and qwen2-moe in fp32, greedy
    tokens equal to one device's, logits within 1e-4, route ids and kept
    pairs equal; qwen2-moe in bf16 (prompt 512), logits within ten bf16
-   steps and the route floors of (b).  Each rank prints its prefill ms,
-   decode ms a step, tokens/s, peak memory and the collectives' share
+   steps and the route floors of (b).  (d) whisper-large-v3 (20 heads:
+   head-TP, 5 a rank, in the encoder, the decoder's self- and its
+   cross-attention; batch 4, 64 tokens behind 1500 seeded frames, 256
+   slots) and zamba2-7b (81 layers: 14 Mamba heads and 8 attention
+   heads a rank; batch 4, prompt 512, 1024 slots) on (1, 4), rwkv6-3b
+   (32 layers, batch 2 a rank) on (2, 2), each at its published widths
+   in bf16, 8 steps, one spawn each with its fp32 copies (whisper 2 + 2
+   layers, once under head-TP and once under the FSDP rules, where the
+   encoder and both decoder attentions run context parallelism; zamba2
+   7; rwkv6 2): every rank's attention launches a prefill (whisper 96,
+   all wgmma; zamba2 13, scalar at head dim 112; none under FSDP + CP or
+   for rwkv6) and decode launches a step (whisper 64, the cross cache's
+   at kv_offset 0; zamba2 13); the copies' greedy tokens equal to one
+   device's and logits within 1e-4; the bf16 logits within ten bf16
+   steps, rwkv6's at every call within twice its witness, one device's
+   own bf16 run on the mesh's batch blocks against its whole batch
+   (``MESH_BF16_WITNESS``).  Each rank prints its prefill ms, decode ms
+   a step, tokens/s, peak memory and the collectives' share
    of a decode step's wall (gloo stages through host memory: these are
    not NVLink's times); the card's memory in use, the phase's time.  A
    rank that fails fails the phase through its exit code;
@@ -245,7 +261,9 @@ with a non-zero exit and no result line):
    and one step there within 2% of one device's step from the same
    checkpoint on the same batch; (c) fp32 copies at full width, 2
    layers, on (2, 2): smollm at batch 4 x 256 and qwen2-moe-a2.7b at
-   batch 2 x 256, capacity factor 8.0 (head-TP, EP): the loss within
+   batch 2 x 256, capacity factor 8.0 (head-TP, EP), whisper-large-v3
+   (2 + 2 layers, head-TP), zamba2-7b (7 layers) and rwkv6-3b (2) at
+   batch 2 x 256: the loss within
    1e-5 relative, the MoE aux within 1e-6, every leaf's gradient within
    rtol 1e-4 and 1e-6 + 1e-4 of its largest magnitude, each rank's
    blocks (so every element of every leaf, and every replica) against
@@ -2318,6 +2336,40 @@ MESH_LM = {"smollm-135m": (LM_BATCH, LM_PROMPT, LM_CACHE, 16),
 MESH_COPIES = {("smollm-135m", "float32"): (2, 8, 128, 256, 8),
                ("qwen2-moe-a2.7b", "float32"): (2, 4, 128, 256, 8),
                ("qwen2-moe-a2.7b", "bfloat16"): (2, 4, 512, 1024, 8)}
+#: the encoder-decoder and recurrent families at their published widths,
+#: bf16, one spawn of the ranks each: arch -> (model axis size, batch,
+#: prompt, cache slots, decode steps); whisper's prompt and slots are
+#: [zoo]'s, behind its 1500 frames; 8 decode steps, cut from [zoo]'s 16
+#: for the script's time (1.3 s a step on the mesh)
+MESH_ZOO = {"whisper-large-v3": (4, ZOO_BATCH, 64, 256, 8),
+            "zamba2-7b": (4, ZOO_BATCH, 512, 1024, 8),
+            "rwkv6-3b": (2, ZOO_BATCH, 512, 1024, 8)}
+#: whisper under the FSDP rules on (1, 4): heads whole, so the encoder,
+#: the decoder's self- and its cross-attention run context parallelism
+WHISPER_FSDP = {"heads": None, "kv_heads": None, "attn_din": ("data",),
+                "seq_sp": ("model",)}
+#: their fp32 copies at full width, depth cut as [zoo] and [recurrent]
+#: cut it (whisper 2 + 2 layers), in the same spawn as their arch:
+#: (arch, what) -> (layers, batch, prompt, cache slots, decode steps,
+#: prefill rule overrides)
+MESH_ZOO_COPIES = {
+    ("whisper-large-v3", "head-TP"): (2, 2, 64, 128, 8, None),
+    ("whisper-large-v3", "FSDP + CP"): (2, 2, 64, 128, 8, WHISPER_FSDP),
+    ("zamba2-7b", "head-TP"): (RECURRENT_FP32_LAYERS, 2, 128, 256, 8, None),
+    ("rwkv6-3b", "head-TP"): (2, 2, 128, 256, 8, None)}
+#: the bf16 archs whose mesh logits drift past ten bf16 steps with depth
+#: (rwkv6-3b on (2, 2) on an H100: 1.9-2.4 of them): each call is held
+#: instead to a witness of the same precision, how far one device's own
+#: bf16 run on the mesh's batch blocks (each block alone, teacher-forced
+#: on its rows of the same tokens) lies from its run on the whole batch
+#: (1.8 at the prefill there): other shapes, so other kernels and
+#: summation orders, and nothing else.  The mesh reorders once more
+#: where that witness does not (the channel mix's ``ffn`` contraction
+#: split over ``model`` and psummed, the vocab-parallel head, and at
+#: decode the square projections' contraction over ``model``): two such
+#: perturbations, each as large as the witness, add to at most
+#: ``MESH_WITNESS_FACTOR`` times it
+MESH_BF16_WITNESS, MESH_WITNESS_FACTOR = ("rwkv6-3b",), 2.0
 #: bf16 MoE on the mesh: the shares of one device's route ids at layer 0
 #: and of its kept pairs at every layer that the mesh keeps at least; at
 #: every layer it keeps at least the share that one device's own prefill
@@ -2418,6 +2470,8 @@ def hold_mesh(probe) -> list:
                      compare_attention(q, k, v, kw)[1]))
     for which, args in (("decode first", probe.decode_first),
                         ("decode last", probe.decode_last)):
+        if args is None:                 # rwkv6: attention-free
+            continue
         q, kc, vc, pos, kw = args
         held.append((which, tuple(kc.shape), kw.get("kv_offset", 0),
                      int(pos), compare_decode(*args)[1]))
@@ -2583,9 +2637,11 @@ def mesh_rm1_rank(rank: int, p) -> dict:
 
 
 def mesh_lm_rank(rank: int, p) -> dict:
-    """An LM on the (1, 4) mesh through ``build_program``'s prefill and
-    decode fns, params placed by ``reshard_tree`` under each mode's
-    rules; decode teacher-forced on ``p["forced"]`` when given (else
+    """An LM on the (1, 4) mesh (``(4 // p["model"], p["model"])`` when
+    given) through ``build_program``'s prefill and decode fns, params
+    placed by ``reshard_tree`` under each mode's rules (the prefill's
+    with ``p["overrides"]``); the prompt with ``p["extra"]`` (whisper's
+    frames); decode teacher-forced on ``p["forced"]`` when given (else
     greedy).  Rank 0 returns the logits and tokens."""
     import torch.distributed as dist
 
@@ -2600,13 +2656,15 @@ def mesh_lm_rank(rank: int, p) -> dict:
 
     cfg, prompt, T, steps = p["cfg"], p["prompt"], p["cache"], p["steps"]
     forced, dev = p.get("forced"), p["dev"]
+    extra = p.get("extra") or {}
     model = registry.build(cfg)
-    mesh = make_host_mesh(MESH_WORLD, device=dev)
+    mesh = make_host_mesh(p.get("model", MESH_WORLD), device=dev)
     dist.barrier()
     card = [card_used_gb()]
     B, S = prompt.shape
     pf, _, prules = build_program(cfg, ShapeConfig("p", S, B, "prefill"),
-                                  mesh, cache_len=T)
+                                  mesh, cache_len=T,
+                                  rule_overrides=p.get("overrides"))
     df, _, drules = build_program(cfg, ShapeConfig("d", T, B, "decode"), mesh)
     placed = elastic.reshard_tree(p["params"], model.param_specs(), mesh,
                                   prules)
@@ -2616,7 +2674,9 @@ def mesh_lm_rank(rank: int, p) -> dict:
     dist.barrier()
     card.append(card_used_gb())
     toks = torch.from_numpy(prompt).to(dev)
-    pf(placed, {"tokens": toks[:, :64]})                  # warm-up
+    # warm-up: 64 tokens (and 64 of whisper's frames)
+    pf(placed, dict({k: v[:, :64] for k, v in extra.items()},
+                    tokens=toks[:, :64]))
     torch.cuda.synchronize()
     out = {"coord": mesh.get_coordinate(), "card_gb": card_used_gb(),
            "card_steps": card,
@@ -2626,7 +2686,7 @@ def mesh_lm_rank(rank: int, p) -> dict:
         ops.reset_launches()
         t0 = time.perf_counter()
         probe.in_prefill = True
-        logits, cache = pf(placed, {"tokens": toks})
+        logits, cache = pf(placed, dict(extra, tokens=toks))
         probe.in_prefill = False
         torch.cuda.synchronize()
         out["prefill_s"] = time.perf_counter() - t0
@@ -2670,13 +2730,15 @@ def mesh_lm_rank(rank: int, p) -> dict:
 MESH_JOBS = {"rm1": mesh_rm1_rank, "lm": mesh_lm_rank}
 
 
-def one_device_lm(model, params, prompt, T: int, steps: int, dev):
+def one_device_lm(model, params, prompt, T: int, steps: int, dev,
+                  extra=None):
     """The same model on one device, greedy: (logits per call as fp32
     numpy, tokens (B, steps + 1), the prefill's routes)."""
     with torch.no_grad(), MeshProbe() as probe:
         probe.in_prefill = True
         logits, cache = model.prefill(
-            params, {"tokens": torch.from_numpy(prompt).to(dev)}, cache_len=T)
+            params, dict(extra or {}, tokens=torch.from_numpy(prompt).to(dev)),
+            cache_len=T)
         probe.in_prefill = False
         out, toks = [logits.float().cpu().numpy()], [logits[:, -1].argmax(-1)]
         for _ in range(steps):
@@ -2760,11 +2822,91 @@ def lm_case(arch, dev, dtype=None) -> dict:
         f"the parent holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"before the ranks")
     return {"tag": tag, "cfg": cfg, "fp32": fp32, "copy": dtype is not None,
-            "want": want,
+            "want": want, "model": MESH_WORLD, "overrides": None,
             "tokens": tokens, "routes": routes, "witness": witness,
             "cap": cap, "B": B, "steps": steps, "T": T,
             "payload": {"cfg": cfg, "params": params, "prompt": prompt,
                         "cache": T, "steps": steps, "dev": dev,
+                        # bf16 decodes teacher-forced on one device's tokens
+                        "forced": None if fp32 else tokens}}
+
+
+def forced_lm(model, params, prompt, tokens, T: int, dev, extra):
+    """One device's logits per call (fp32 numpy), its decode teacher-
+    forced on ``tokens`` (B, steps + 1) as the bf16 ranks' is."""
+    out = []
+    with torch.no_grad():
+        logits, cache = model.prefill(
+            params, dict(extra, tokens=torch.from_numpy(prompt).to(dev)),
+            cache_len=T)
+        out.append(logits.float().cpu().numpy())
+        for i in range(tokens.shape[1] - 1):
+            tok = torch.from_numpy(tokens[:, i]).to(dev)[:, None]
+            logits, cache = model.decode_step(params, cache, {"tokens": tok})
+            out.append(logits.float().cpu().numpy())
+    return out
+
+
+def bf16_witness(model, params, prompt, tokens, T: int, dev, extra, got,
+                 blocks: int) -> list:
+    """How far one device's bf16 logits ``got`` (its greedy run on the
+    whole batch, which fed it ``tokens``) lie from its own run on the
+    batch cut in ``blocks`` blocks (the mesh's batch blocks), each block
+    alone and teacher-forced on its rows of ``tokens``, per call, in ten
+    bf16 steps at the whole run's logits' magnitude."""
+    b = prompt.shape[0] // blocks
+    rows = [slice(i * b, (i + 1) * b) for i in range(blocks)]
+    parts = [forced_lm(model, params, prompt[r], tokens[r], T, dev,
+                       {k: v[r] for k, v in extra.items()}) for r in rows]
+    free_card()
+    return [float(np.abs(np.concatenate(cs, 0) - g).max())
+            / bf16_tol(torch.from_numpy(g)) for g, cs in zip(got, zip(*parts))]
+
+
+def zoo_mesh_case(arch, dev, what=None) -> dict:
+    """whisper, zamba2 or rwkv6 for [mesh]: at its published widths in
+    bf16 (``MESH_ZOO``), or with ``what`` its fp32 copy
+    (``MESH_ZOO_COPIES``); its weights drawn once on the card, seeded
+    inputs (whisper's frames in the model's dtype, as [zoo] sends
+    them), and one device's greedy run before the ranks start."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+
+    cfg = configs.get_config(arch)
+    m, B, S, T, steps = MESH_ZOO[arch]
+    overrides, tag = None, f"{arch} on ({MESH_WORLD // m}, {m})"
+    if what is not None:
+        layers, B, S, T, steps, overrides = MESH_ZOO_COPIES[arch, what]
+        cfg = cfg.replace(num_layers=layers, dtype="float32",
+                          param_dtype="float32")
+        if cfg.encdec is not None:
+            cfg = cfg.replace(encdec=dataclasses.replace(
+                cfg.encdec, num_encoder_layers=layers))
+        tag = f"{arch} float32 copy ({layers} layers, {what})"
+    fp32 = cfg.dtype == "float32"
+    model = registry.build(cfg)
+    params = model.init(0, device=dev)
+    prompt, extra = zoo_inputs(cfg, np.random.RandomState(3), B, S, dev,
+                               torch.float32 if fp32 else torch.bfloat16)
+    want, tokens, _ = one_device_lm(model, params, prompt, T, steps, dev,
+                                    extra)
+    witness = None
+    if not fp32 and arch in MESH_BF16_WITNESS:
+        witness = bf16_witness(model, params, prompt, tokens, T, dev, extra,
+                               want, MESH_WORLD // m)
+    free_card()
+    log(f"[mesh] {tag}: batch {B}, prompt {S}, {T} slots, {steps} steps"
+        + (f", prefill rules with {overrides}" if overrides else "")
+        + f"; the parent holds {torch.cuda.memory_allocated() / 1e9:.2f} GB"
+        f" before the ranks")
+    return {"tag": tag, "cfg": cfg, "fp32": fp32, "copy": what is not None,
+            "want": want, "tokens": tokens, "routes": None, "witness": None,
+            "bf16_witness": witness,
+            "cap": None, "B": B, "steps": steps, "T": T, "model": m,
+            "overrides": overrides,
+            "payload": {"cfg": cfg, "params": params, "prompt": prompt,
+                        "extra": extra, "cache": T, "steps": steps,
+                        "dev": dev, "model": m, "overrides": overrides,
                         # bf16 decodes teacher-forced on one device's tokens
                         "forced": None if fp32 else tokens}}
 
@@ -2783,28 +2925,44 @@ def lm_check(case, res, card, rows_launches) -> None:
         f"placing, after the decode placement "
         f"{[round(g, 2) for g in res[0]['card_steps']]}; a rank's blocks "
         f"{res[0]['weights_gb']:.2f} GB")
-    n_layers, hp = cfg.num_layers, cfg.padded_heads
+    from repro_torch.kernels import flash_attention as fa
+
+    hp, m = cfg.padded_heads, case["model"]
+    # a prefill's attention launches and a decode step's (zoo_launches)
+    attn_n, dec_n = zoo_launches(cfg, 1)
+    head_tp = hp % m == 0 and "heads" not in (case["overrides"] or {})
+    kind = fa.variant(torch.bfloat16, cfg.resolved_head_dim)
     for r, x in enumerate(res):
-        assert x["decode_launches"] == [n_layers] * steps, (r, x)
-        assert x["offsets"] == sorted({x["coord"][1] * T // MESH_WORLD}), x
+        assert x["decode_launches"] == [dec_n] * steps, (r, x)
+        # each rank's slice of the self cache starts at its kv_offset;
+        # whisper's cross cache is whole on every rank (kv_offset 0)
+        offsets = {x["coord"][1] * T // m} if dec_n else set()
+        if cfg.family == "audio":
+            offsets.add(0)
+        assert x["offsets"] == sorted(offsets), x
         attn = x["prefill_launches"]["flash_attention"]
         assert [h[0] for h in x["held"]] == (
-            ["attention"] if attn else []) + ["decode first", "decode last"]
-        if hp % MESH_WORLD == 0:         # head-TP: the kernel on local heads
-            assert attn == n_layers, x
-            assert set(x["heads"]) == {hp // MESH_WORLD}, x
+            ["attention"] if attn else []) + (
+            ["decode first", "decode last"] if dec_n else [])
+        if head_tp and attn_n:           # the kernel on local heads
+            assert attn == attn_n, x
+            assert set(x["heads"]) == {hp // m}, x
             if not case["fp32"]:
-                assert x["variants"] == {"wgmma": n_layers, "scalar": 0}, x
-        else:                            # context parallel: blocked, no kernel
+                assert x["variants"] == {k: attn_n if k == kind else 0
+                                         for k in x["variants"]}, x
+        else:        # context parallel (blocked, no kernel) or attention-free
             assert attn == 0, x
-    assert sum(x["offsets"][0] > 0 for x in res) == MESH_WORLD - 1
+    if dec_n:
+        assert (sum(max(x["offsets"]) > 0 for x in res)
+                == sum(x["coord"][1] > 0 for x in res))
     got, want = res[0]["logits"], case["want"]
     assert all(np.isfinite(g).all() for g in got)
     agree = float((res[0]["tokens"] == case["tokens"]).mean())
     if case["fp32"]:
         err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
         log(f"[mesh] {tag}: greedy tokens agree with one device's on "
-            f"{agree:.3f}, logits within {err:.3g} (tolerance 1e-4)")
+            f"{agree:.3f}, logits within {err:.3g} (tolerance 1e-4 and "
+            f"1e-4 of each logit)")
         if cfg.moe is not None:
             check_routes(tag, cfg, res[0]["routes"], case, exact=True)
         np.testing.assert_array_equal(res[0]["tokens"], case["tokens"])
@@ -2825,7 +2983,16 @@ def lm_check(case, res, card, rows_launches) -> None:
         # with depth as one device's own do (check_routes holds the mesh
         # to that): a full-depth MoE's logits are reported, its 2-layer
         # copy's held
-        if cfg.moe is None or case["copy"]:
+        wit = case.get("bf16_witness")
+        if wit is not None:
+            log(f"[mesh] {tag}: the witness, one device's bf16 logits on "
+                f"the mesh's batch blocks against its whole batch's in the "
+                f"same units: prefill {wit[0]:.3f}, teacher-forced steps "
+                f"{[round(x, 3) for x in wit[1:]]}; each call held within "
+                f"{MESH_WITNESS_FACTOR} times its witness (and at least 1)")
+            assert all(r <= max(1.0, MESH_WITNESS_FACTOR * w)
+                       for r, w in zip(ratios, wit)), (tag, ratios, wit)
+        elif cfg.moe is None or case["copy"]:
             assert max(ratios) <= 1.0, (tag, ratios)
     rows_launches[tag] = [{"flash_attention": x["prefill_launches"][
         "flash_attention"], "flash_decode_partial": sum(x["decode_launches"])}
@@ -2913,11 +3080,30 @@ def rm1_check(res, reqs, scores, card) -> list:
     return [x["launches"]["embedding_bag_fused_flat"] for x in res]
 
 
+def mesh_zoo(dev, card, lm) -> None:
+    """whisper-large-v3, zamba2-7b and rwkv6-3b, one spawn of the ranks
+    each, freed before the next: the arch at full width in bf16, then
+    its fp32 copies; their launches go into ``lm``."""
+    for arch in MESH_ZOO:
+        cases = [zoo_mesh_case(arch, dev)] + [
+            zoo_mesh_case(arch, dev, what)
+            for a, what in MESH_ZOO_COPIES if a == arch]
+        per_job, wall_s = run_ranks([("lm", c["payload"]) for c in cases])
+        log(f"[mesh] {[c['tag'] for c in cases]}: {MESH_WORLD} ranks "
+            f"spawned, served and joined in {wall_s:.1f} s")
+        for c, res in zip(cases, per_job):
+            lm_check(c, res, card, lm)
+        del cases, per_job, c, res
+        free_card()
+
+
 def mesh_phase(dev, card, reqs, scores, rows) -> None:
-    """Two spawns of four rank processes on the one card: smollm-135m on
+    """Spawns of four rank processes on the one card: smollm-135m on
     (1, 4), the 2-layer copies, then RM1 V0 on (data 2, model 2) and on the
     survivors of a failure; then qwen2-moe-a2.7b on (1, 4) alone (the
-    parent's copy of its weights and the ranks' blocks hold 72 GB)."""
+    parent's copy of its weights and the ranks' blocks hold 72 GB); then
+    whisper, zamba2 and rwkv6 with their copies, one spawn each
+    (``mesh_zoo``)."""
     from repro_torch.configs import rm1
     from repro_torch.models.dlrm import DLRMModel
 
@@ -2955,6 +3141,7 @@ def mesh_phase(dev, card, reqs, scores, rows) -> None:
     lm_check(case, res, card, lm)
     del case, res
     free_card()
+    mesh_zoo(dev, card, lm)
     for row in rows:
         if row["name"] == "embedding_bag_fused_flat":
             row["mesh_launches"] = launches
@@ -2971,7 +3158,10 @@ MT_BATCH, MT_SEQ, MT_STEPS, MT_CKPT_EVERY, MT_FAULT_AT = 8, 1024, 8, 3, 5
 #: each logged loss of the mesh against one device's (relative), and (b)
 MT_LOSS_RTOL = 0.02
 #: (c) the fp32 copies at full width: arch -> (layers, batch, seq)
-MT_COPIES = {"smollm-135m": (2, 4, 256), "qwen2-moe-a2.7b": (2, 2, 256)}
+MT_COPIES = {"smollm-135m": (2, 4, 256), "qwen2-moe-a2.7b": (2, 2, 256),
+             "whisper-large-v3": (2, 2, 256),     # 2 + 2 layers
+             "zamba2-7b": (RECURRENT_FP32_LAYERS, 2, 256),
+             "rwkv6-3b": (2, 2, 256)}
 MT_COPY_LOSS_RTOL = 1e-5       # the loss against one device, relative
 MT_GRAD_RTOL = 1e-4            # gradients: rtol, and atol 1e-6 + 1e-4 of
 MT_GRAD_ATOL = 1e-6            # the leaf's largest magnitude ([train]'s)
@@ -3252,8 +3442,7 @@ def mt_copy_rank(rank: int, p) -> dict:
         loss, grads = value_and_grad(model, placed, batch)
         torch.cuda.synchronize()
         vg_s = time.perf_counter() - t0
-        with torch.no_grad():
-            _, aux = model.forward(placed, batch, train=True)
+        aux = moe_aux(model, placed, batch)
         gnorm = opt_mod.global_norm(grads)
         mclip = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
@@ -3340,6 +3529,15 @@ def mt_copy_rank(rank: int, p) -> dict:
         del flat_g[path], g, arr, init
     out["worst"], out["bad"] = worst, bad
     return out
+
+
+def moe_aux(model, params, batch):
+    """The MoE router aux loss of a training forward (0.0 without MoE:
+    the other families' losses have none)."""
+    if model.cfg.moe is None:
+        return 0.0
+    with torch.no_grad():
+        return model.forward(params, batch, train=True)[1]
 
 
 def placed_of(tree, path):
@@ -3471,6 +3669,9 @@ def mt_copy_case(arch, dev, tmp: Path, card) -> dict:
     layers, B, S = MT_COPIES[arch]
     cfg = configs.get_config(arch).replace(
         num_layers=layers, dtype="float32", param_dtype="float32")
+    if cfg.encdec is not None:
+        cfg = cfg.replace(encdec=dataclasses.replace(
+            cfg.encdec, num_encoder_layers=layers))
     if cfg.moe is not None:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                   capacity_factor=8.0))
@@ -3479,13 +3680,15 @@ def mt_copy_case(arch, dev, tmp: Path, card) -> dict:
     rng = np.random.RandomState(17)
     toks = rng.randint(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
     batch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+    if cfg.encdec is not None:
+        batch["frames"] = rng.randn(B, cfg.encdec.encoder_seq,
+                                    cfg.d_model).astype(np.float32)
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     ocfg = OptConfig()
     one = tree_map(lambda t: t.clone(), params)
     ops.reset_launches()
     loss, grads = value_and_grad(model, one, tb)
-    with torch.no_grad():
-        _, aux = model.forward(one, tb, train=True)
+    aux = moe_aux(model, one, tb)
     gnorm = opt_mod.global_norm(grads)
     clip = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
@@ -3506,7 +3709,8 @@ def mt_copy_case(arch, dev, tmp: Path, card) -> dict:
             assert torch.equal(v, placed_of(state["v"], path)), path
         checked = "; adam_first_step bitwise equal to apply_updates"
         del state
-    log(f"[mesh-train] (c) {arch} fp32 copy: {layers} layers at full "
+    log(f"[mesh-train] (c) {arch} fp32 copy: {layers} layers"
+        f"{' + ' + str(layers) if cfg.encdec else ''} at full "
         f"width, batch {B} x seq {S}: one device's loss {float(loss):.6f}, "
         f"aux {float(aux):.6f}, grad norm {float(gnorm):.6f}, clip "
         f"{float(clip):.6f}{checked}; {card}")
@@ -3684,7 +3888,8 @@ def mesh_train_phase(dev, card) -> None:
     a checkpoint every 3, a fault at step 5; (b) its checkpoint restored
     onto the 2 survivors; (c) fp32 copies at full width, depth cut to 2
     layers: smollm at batch 4 x 256, qwen2-moe-a2.7b at batch 2 x 256
-    and capacity factor 8.0; (d) RM1 V0, rows_per_table cut to 10,000
+    and capacity factor 8.0, whisper (2 + 2), zamba2 (7) and rwkv6 (2)
+    at batch 2 x 256; (d) RM1 V0, rows_per_table cut to 10,000
     as in [train], batch 64, 3 steps.  One device's witness of each case
     is computed first from the same weights (its gradients kept in files
     on the host); the ranks compare their blocks against it."""
@@ -3730,6 +3935,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from repro_torch.configs import rm1
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.ref import embedding_bag_seq_ref
@@ -3882,6 +4088,7 @@ def main() -> int:
     # --------------------------------------------------------- mesh-train
     mesh_train_phase(dev, card)
 
+    log(f"[total] the script took {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -527,6 +527,15 @@ def place_local(loc: torch.Tensor, names, shape) -> DTensor:
                               stride=stride)
 
 
+def place_local_tree(loc, names, whole):
+    """:func:`place_local` over a tree: each leaf of ``loc`` (this
+    rank's block) placed under the matching names of ``names`` at the
+    global shape of the matching leaf of ``whole`` (a tensor, DTensor or
+    meta tensor); a leaf already placed stays as it is."""
+    return tree_map(lambda t, n, w: t if isinstance(t, DTensor)
+                    else place_local(t, n, w.shape), loc, names, whole)
+
+
 def placed_zeros(shape, names, dtype: torch.dtype, device) -> DTensor:
     """Zeros of global ``shape`` placed under ``names`` on the active
     mesh, made from this rank's block only."""

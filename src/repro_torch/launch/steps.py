@@ -10,6 +10,9 @@ places real arguments the same way (``elastic.reshard_tree`` for the
 parameters, ``optimizer.init_state(cfg, params, state_specs)`` or
 ``reshard_tree`` for the ZeRO-1 state, ``sharding.place`` for the
 inputs) or passes plain whole tensors, which the step blocks itself.
+Every model family takes it: the decoder LMs (dense, MoE, VLM), whisper,
+zamba2, rwkv6 and the DLRM; a prefill's cache comes out in the layout
+the decode program's example cache has, so it feeds decode as it is.
 """
 from __future__ import annotations
 

@@ -39,11 +39,19 @@ seq-sharded KV: :func:`sharded_decode_attention` writes the new token's
                 kernel on each rank's T/n slice at ``kv_offset``; only the
                 (o, l, m) partials cross the network
                 (:func:`combine_partials` over the axis: the Fsum);
-weights:        :func:`mesh_heads`, :func:`mesh_out` and
-                :func:`mesh_mlp` contract on the weights' local blocks
-                (a sharded contracting dim: a local slice of x and a
-                psum; a sharded output dim: local heads or columns),
-                :func:`mesh_embed` is the vocab-parallel lookup.
+weights:        :func:`mesh_heads`, :func:`mesh_out`, :func:`linear`
+                and :func:`mesh_mlp` contract on the weights' local
+                blocks (a sharded contracting dim: a local slice of x
+                and a psum; a sharded output dim: local heads or
+                columns), :func:`mesh_embed` is the vocab-parallel
+                lookup, :func:`unstack` cuts stacked DTensor leaves per
+                layer; with no mesh each is its one-device counterpart,
+                so a model calls them on either path;
+sharded dims:   :func:`rmsnorm_sharded` normalises over a dim sharded
+                across ranks (a psum of the blocks' sums of squares),
+                :func:`reblock` moves a dim's block from one entry's
+                cut to another's (zamba2's heads that straddle the
+                ``ffn`` blocks).
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
+from repro_torch.models import params as pm
 from repro_torch.models.params import Spec
 
 # ---------------------------------------------------------------- norms
@@ -346,25 +355,36 @@ def psum_matmul(x: torch.Tensor, w: torch.Tensor,
     return shd.psum(matmul(x.to(wide), w.to(wide)), entry).to(dt)
 
 
+def _contract(x: torch.Tensor, wl: torch.Tensor,
+              din: shd.Entry) -> torch.Tensor:
+    """x (..., d) whole @ a rank's block ``wl`` of a 2-D weight whose
+    contracting dim is sharded over ``din``: this rank's slice of x,
+    then a psum (:func:`psum_matmul`)."""
+    i, n = shd.entry_index(din)
+    step = x.shape[-1] // n
+    return psum_matmul(x.narrow(-1, i * step, step), wl, din)
+
+
 def mesh_heads(x: torch.Tensor, w, names) -> torch.Tensor:
     """x (..., d) whole @ w (d, h, k) under ``names`` -> (..., h', k):
     the heads of this rank's block of ``w``.  A contracting dim sharded
     over an axis contracts this rank's slice of x, then a psum
-    (:func:`psum_matmul`)."""
-    din = shd.spec(w, *names)[0]
+    (:func:`psum_matmul`).  With no mesh it is :func:`_heads`."""
+    if shd.device_mesh() is None:
+        return _heads(x, w)
     wl = shd.local(w, *names)
-    i, n = shd.entry_index(din)
-    step = x.shape[-1] // n
     d, h, k = wl.shape
-    return psum_matmul(x.narrow(-1, i * step, step), wl.reshape(d, h * k),
-                       din).unflatten(-1, (h, k))
+    return _contract(x, wl.reshape(d, h * k),
+                     shd.spec(w, *names)[0]).unflatten(-1, (h, k))
 
 
 def mesh_out(o: torch.Tensor, w, names) -> torch.Tensor:
     """o (..., h', k) @ w (h, k, d) under ``names`` -> (..., d) whole.
     ``o`` holds the heads of this rank's block of ``w`` (all of them
     when the heads dim is whole): a sharded heads dim is a psum, a
-    sharded output dim a gather."""
+    sharded output dim a gather.  With no mesh it is :func:`matmul`."""
+    if shd.device_mesh() is None:
+        return matmul(o.flatten(-2), w.flatten(0, 1))
     hspec, _, dspec = shd.spec(w, *names)
     wl = shd.local(w, *names)
     out = psum_matmul(o.flatten(-2), wl.flatten(0, 1), hspec)
@@ -373,7 +393,10 @@ def mesh_out(o: torch.Tensor, w, names) -> torch.Tensor:
 
 def mesh_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU on this rank's ``ffn`` columns of ``wi_*`` and rows of
-    ``wo``, then a psum over the ``ffn`` axes (Megatron TP)."""
+    ``wo``, then a psum over the ``ffn`` axes (Megatron TP); with no
+    mesh :func:`mlp_apply`."""
+    if shd.device_mesh() is None:
+        return mlp_apply(p, x)
     fspec = shd.spec(p["wi_gate"], "embed", "ffn")[1]
     lp = {"wi_gate": shd.local(p["wi_gate"], "embed", "ffn"),
           "wi_up": shd.local(p["wi_up"], "embed", "ffn")}
@@ -381,10 +404,63 @@ def mesh_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
                        fspec)
 
 
+def linear(x: torch.Tensor, w, names) -> torch.Tensor:
+    """x (..., d) whole @ w (d, e) under ``names``: :func:`matmul` with
+    no mesh; on a mesh the product with this rank's block of ``w`` (a
+    sharded contracting dim contracts this rank's slice of x, then a
+    psum, as :func:`mesh_heads` does; a sharded output dim gives this
+    rank's columns)."""
+    if shd.device_mesh() is None:
+        return matmul(x, w)
+    return _contract(x, shd.local(w, *names), shd.spec(w, *names)[0])
+
+
+def rmsnorm_sharded(x: torch.Tensor, scale: torch.Tensor, entry: shd.Entry,
+                    d: int, eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm` over a last dim of ``d`` sharded over ``entry``:
+    ``x`` and ``scale`` are this rank's blocks, and the mean of squares
+    is the psum of the blocks' sums over the whole ``d`` (not the
+    block's own mean).  With ``entry`` None it is :func:`rmsnorm`."""
+    if entry is None:
+        return rmsnorm(x, scale, eps)
+    dt = x.dtype
+    x = x.float()
+    ms = shd.psum((x * x).sum(-1, keepdim=True), entry) / d
+    x = x * torch.rsqrt(ms + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def reblock(x: torch.Tensor, src: shd.Entry, dst: shd.Entry,
+            dim: int = -1) -> torch.Tensor:
+    """This rank's block of ``dim`` sharded over ``dst``, from its block
+    sharded over ``src``: the whole gathered over ``src``, then cut."""
+    if src == dst:
+        return x
+    x = shd.all_gather(x, src, dim)
+    i, n = shd.entry_index(dst)
+    step = x.shape[dim] // n
+    return x.narrow(dim, i * step, step)
+
+
+def unstack(tree: dict, n: int) -> list:
+    """The ``n`` per-layer trees of a tree stacked on a leading layer
+    axis: ``params.unstack`` with no mesh; on a mesh each DTensor leaf's
+    slices as DTensors (``sharding.unbind0``)."""
+    if shd.device_mesh() is None:
+        return pm.unstack(tree, n)
+    parts = pm.tree_map(shd.unbind0, tree)
+    return [pm.tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
 def mesh_embed(table, tokens: torch.Tensor) -> torch.Tensor:
-    """Vocab-parallel lookup: each rank looks up the tokens of its vocab
-    rows (zero rows for the others), then a psum; exactly one rank adds
-    each token's row."""
+    """Vocab-parallel lookup of ``tokens`` (the global (B, S) batch, a
+    DTensor or whole) for this rank's batch block: each rank looks up
+    the tokens of its vocab rows (zero rows for the others), then a
+    psum; exactly one rank adds each token's row.  With no mesh it is
+    :func:`embed_lookup`."""
+    if shd.device_mesh() is None:
+        return embed_lookup(table, tokens)
+    tokens = shd.local(tokens, "batch", None)
     vspec = shd.spec(table, "vocab", "embed")[0]
     tl = shd.local(table, "vocab", "embed")
     i, _ = shd.entry_index(vspec)

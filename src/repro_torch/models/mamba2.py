@@ -41,18 +41,43 @@ Differences from the reference, each deliberate:
 block's attention through the differentiable
 ``layers.flash_attention_blocked`` and checkpoints as the reference's
 scans do (``cfg.remat``): each Mamba2 layer, and each group (its layers
-and the shared block) around them.  ``cache_logical`` and the mesh
-branches wait for ROADMAP Queue 1 item 8c.
+and the shared block) around them.
+
+On a mesh (``distributed.sharding.use_mesh`` with a DeviceMesh and
+``registry.make_rules``) each rank computes on its batch block, sharded
+as the reference's table says: ``in_x``, ``in_z``, ``conv_x`` and
+``gnorm`` on ``ffn`` (this rank's d_inner columns), ``in_dt``,
+``A_log``, ``D`` and ``dt_bias`` on ``mamba_heads``, ``in_bc`` and
+``conv_bc`` whole, ``out`` row-parallel (one psum).  The SSD and the
+decode recurrence run on the rank's heads.  Two places need more than
+the local code:
+
+- the gated RMSNorm normalises over the whole d_inner: its mean of
+  squares is the psum of the blocks' sums (``layers.rmsnorm_sharded``);
+- where ``mamba_heads`` does not shard as ``ffn`` does (whole heads
+  while ``ffn`` shards: a rank's columns cut through heads), x is
+  gathered to whole heads for the SSD and y cut back to the rank's
+  columns (``layers.reblock``).
+
+The shared block takes ``DecoderLM``'s mesh branches (head-TP or
+context parallelism at prefill, the sequence-sharded cache at decode)
+and its MLP is Megatron over ``ffn`` (``layers.mesh_mlp``); the
+embedding, head and CE are vocab-parallel, the states are placed as
+``cache_logical`` says.  Training differentiates the shared block once
+per application; autograd sums them into its one gradient before the
+DP all-reduce.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import params as pm
 from repro_torch.models import transformer as tfm
@@ -166,8 +191,13 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """
     s = cfg.ssm
     di = s.expand * cfg.d_model
-    nh = di // s.head_dim
     B, S, _ = x.shape
+    fspec = hspec = None
+    if shd.device_mesh() is not None:
+        fspec = shd.spec(p["in_x"], "embed", "ffn")[1]
+        hspec = shd.spec(p["in_dt"], "embed", "mamba_heads")[1]
+    names = mamba2_table(cfg)
+    p = {k: shd.local(v, *names[k].names) for k, v in p.items()}
 
     h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
     xz = L.matmul(h, p["in_x"])
@@ -185,6 +215,9 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     A = -torch.exp(p["A_log"].float())
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    # the columns of this rank's heads (all of them with no mesh)
+    xz = L.reblock(xz, fspec, hspec)
+    nh = xz.shape[-1] // s.head_dim
     xh = xz.reshape(B, S, nh, s.head_dim)
 
     if S == 1 and ssm_state is not None:
@@ -199,10 +232,10 @@ def mamba2_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         y, h_fin = ssd_chunked(xh, dt, A, Bm, Cm, s.chunk, h0=ssm_state)
 
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(B, S, di)
-    y = L.rmsnorm(y * F.silu(z.float()).to(x.dtype), p["gnorm"],
-                  cfg.norm_eps)
-    out = L.matmul(y, p["out"])
+    y = L.reblock(y.reshape(B, S, nh * s.head_dim), hspec, fspec)
+    y = L.rmsnorm_sharded(y * F.silu(z.float()).to(x.dtype), p["gnorm"],
+                          fspec, di, cfg.norm_eps)
+    out = L.psum_matmul(y, p["out"], fspec)
     return x + out, h_fin, {"x": conv_state_x, "bc": conv_state_bc}
 
 
@@ -262,8 +295,7 @@ class Zamba2Model:
 
     def param_specs(self) -> Dict:
         """The logical-name tree of the parameters (``optimizer.
-        state_specs`` reads it); its mesh branches wait for ROADMAP
-        Queue 1 item 8c."""
+        state_specs`` and the mesh placement read it)."""
         mt = mamba2_table(self.cfg)
         specs = pm.table_specs(self._top_table())
         specs["groups"] = pm.table_specs(mt, prefix=("layers", "layers"))
@@ -293,19 +325,29 @@ class Zamba2Model:
                     train: bool = False):
         cfg = self.cfg
         h, kv = self._lm._attention(
-            ap["attn"], L.rmsnorm(x, ap["ln1"], cfg.norm_eps), pos, train)
+            ap["attn"], L.rmsnorm(x, shd.local(ap["ln1"], "embed"),
+                                  cfg.norm_eps), pos, train)
         x = x + h
-        x = x + L.mlp_apply(ap["mlp"], L.rmsnorm(x, ap["ln2"], cfg.norm_eps))
-        return x, kv
+        return x + L.mesh_mlp(ap["mlp"], L.rmsnorm(
+            x, shd.local(ap["ln2"], "embed"), cfg.norm_eps)), kv
+
+    def _groups(self, params: Dict) -> list:
+        """Each group's per-layer parameter trees."""
+        return [L.unstack(gp, self.group)
+                for gp in L.unstack(params["groups"], self.n_groups)]
 
     def _layers(self, params: Dict):
         """(group index or None for the tail, layer index in it, the
         layer's parameters) in the order the stack runs them."""
-        for i, gp in enumerate(pm.unstack(params["groups"], self.n_groups)):
-            for j, lp in enumerate(pm.unstack(gp, self.group)):
+        for i, gp in enumerate(self._groups(params)):
+            for j, lp in enumerate(gp):
                 yield i, j, lp
-        for j, lp in enumerate(pm.unstack(params["tail"], self.tail)):
+        for j, lp in enumerate(L.unstack(params["tail"], self.tail)):
             yield None, j, lp
+
+    def _final(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        return L.rmsnorm(x, shd.local(params["final_norm"], "embed"),
+                         self.cfg.norm_eps)
 
     def _stack(self, params: Dict, x: torch.Tensor,
                cache: Optional[Dict] = None):
@@ -325,7 +367,7 @@ class Zamba2Model:
                 x, kv = self._attn_block(params["shared_attn"], x, pos)
                 if cache is not None:
                     kvs.append(kv)
-        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), kvs
+        return self._final(params, x), kvs
 
     def forward(self, params: Dict, batch: Dict, train: bool = False):
         """Full-sequence hidden states after the final norm, and 0.0 (no
@@ -333,7 +375,7 @@ class Zamba2Model:
         differentiable attention and checkpoints each layer and each
         group as ``cfg.remat`` says."""
         cfg = self.cfg
-        x = L.embed_lookup(params["embed"], batch["tokens"])
+        x = L.mesh_embed(params["embed"], batch["tokens"])
         if not train:
             return self._stack(params, x)[0], 0.0
         pos = torch.arange(x.shape[1], device=x.device)
@@ -346,41 +388,39 @@ class Zamba2Model:
             return self._attn_block(params["shared_attn"], x, pos, True)[0]
 
         group = tfm._remat(group, cfg.remat)
-        for gp in pm.unstack(params["groups"], self.n_groups):
-            x = group(pm.unstack(gp, self.group), x)
-        for lp in pm.unstack(params["tail"], self.tail):
+        for gp in self._groups(params):
+            x = group(gp, x)
+        for lp in L.unstack(params["tail"], self.tail):
             x = layer(lp, x)
-        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), 0.0
+        return self._final(params, x), 0.0
 
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
-        x, _ = self.forward(params, batch, train=True)
-        logits = L.unembed(x, params["head"], tied=False)
-        return tfm.cross_entropy(logits, batch["labels"],
-                                 self.cfg.vocab_size).mean()
+        """Mean next-token CE; on a mesh vocab-parallel over the global
+        batch (``DecoderLM.mean_ce``)."""
+        return self._lm.mean_ce(params, self.forward(params, batch,
+                                                     train=True)[0], batch)
 
     # serving ----------------------------------------------------------
+    _STATES = ("group_ssm", "group_conv", "tail_ssm", "tail_conv")
+
     def _state_buffers(self, B: int, device) -> Dict:
-        """Empty per-layer state buffers, stacked as the reference's
-        scans stack them: ssm (..., B, nh, P, N) fp32, conv (..., B, W-1,
-        C) in ``cfg.dtype``."""
-        cfg, s = self.cfg, self.cfg.ssm
-        di = s.expand * cfg.d_model
-        nh = di // s.head_dim
-        dt = tfm._dtype(cfg.dtype)
+        """Empty per-layer state buffers of a batch of ``B``, stacked as
+        the reference's scans stack them: ssm (..., B, nh, P, N) fp32,
+        conv (..., B, W-1, C) in ``cfg.dtype``; on a mesh this rank's
+        blocks of them."""
+        specs = self.cache_specs(ShapeConfig("state", 1, B, "prefill"))
+        names = self.cache_logical(None)
+        mesh = shd.device_mesh()
 
-        def bufs(lead):
-            return (torch.empty(lead + (B, nh, s.head_dim, s.d_state),
-                                dtype=torch.float32, device=device),
-                    {"x": torch.empty(lead + (B, s.conv_width - 1, di),
-                                      dtype=dt, device=device),
-                     "bc": torch.empty(lead + (B, s.conv_width - 1,
-                                               2 * s.d_state),
-                                       dtype=dt, device=device)})
+        def buf(s, n):
+            shape = s.shape
+            if mesh is not None:
+                shape = shd.block(s, shd.make_sharding(n, s.shape),
+                                  mesh).shape
+            return torch.empty(shape, dtype=s.dtype, device=device)
 
-        g_ssm, g_conv = bufs((self.n_groups, self.group))
-        t_ssm, t_conv = bufs((self.tail,))
-        return {"group_ssm": g_ssm, "group_conv": g_conv,
-                "tail_ssm": t_ssm, "tail_conv": t_conv}
+        return {k: pm.tree_map(buf, specs[k], names[k])
+                for k in self._STATES}
 
     @staticmethod
     def _slot(cache: Dict, i: Optional[int], j: int):
@@ -407,16 +447,24 @@ class Zamba2Model:
         cache_len pads the shared block's KV caches beyond the prompt so
         decode steps have room (defaults to prompt length)."""
         dt = tfm._dtype(self.cfg.dtype)
-        x = L.embed_lookup(params["embed"], batch["tokens"])
-        cache = self._state_buffers(x.shape[0], x.device)
+        B = batch["tokens"].shape[0]
+        x = L.mesh_embed(params["embed"], batch["tokens"])
+        cache = self._state_buffers(B, x.device)
         x, kvs = self._stack(params, x, cache)
-        logits = L.unembed(x[:, -1:], params["head"], tied=False)
+        logits = self._lm._logits(params, x[:, -1:])
         for n, name in enumerate(("attn_k", "attn_v")):
             cache[name] = tfm.pad_cache(
                 torch.stack([kv[n].to(dt) for kv in kvs]), cache_len)
         cache["pos"] = torch.full((), x.shape[1] - 1, dtype=torch.int32,
                                   device=x.device)
-        return logits, cache
+        if shd.device_mesh() is not None:
+            # the K/V as DecoderLM places them: this rank's kv_seq slice
+            for name in ("attn_k", "attn_v"):
+                cache[name] = tfm.place_kv_cache(cache[name], B)
+            cache = shd.place_local_tree(
+                cache, self.cache_logical(None),
+                self.cache_specs(ShapeConfig("state", 1, B, "prefill")))
+        return self._lm._place_logits(batch, logits), cache
 
     def decode_step(self, params: Dict, cache: Dict, batch: Dict):
         """One token for the whole batch. batch: {"tokens": (B,1)}.
@@ -426,25 +474,40 @@ class Zamba2Model:
         and conv states into the cache, all in place; returns (logits,
         the same buffers with the advanced device ``pos``)."""
         cfg = self.cfg
-        x = L.embed_lookup(params["embed"], batch["tokens"])
-        pos = cache["pos"] + 1
+        mesh = shd.device_mesh()
+        x = L.mesh_embed(params["embed"], batch["tokens"])
+        names = self.cache_logical(None)
+        loc = {k: pm.tree_map(lambda t, n: shd.local(t, *n), v, names[k])
+               for k, v in cache.items()}
+        pos = loc["pos"] + 1
+        se = (None if mesh is None else shd.resolve_for_shape(
+            ("kv_seq",), (cache["attn_k"].shape[2],))[0])
         ap = params["shared_attn"]
         for i, j, lp in self._layers(params):
-            ssm, cv = self._slot(cache, i, j)
+            ssm, cv = self._slot(loc, i, j)
             x, h_fin, conv = mamba2_apply(lp, x, cfg, ssm_state=ssm,
                                           conv_state=cv)
-            self._store(cache, i, j, h_fin, conv)
+            self._store(loc, i, j, h_fin, conv)
             if i is not None and j == self.group - 1:
-                h = L.rmsnorm(x, ap["ln1"], cfg.norm_eps)
+                h = L.rmsnorm(x, shd.local(ap["ln1"], "embed"), cfg.norm_eps)
                 h, _, _ = self._lm._decode_attention(
-                    ap["attn"], h, pos, cache["attn_k"][i],
-                    cache["attn_v"][i])
+                    ap["attn"], h, pos, loc["attn_k"][i], loc["attn_v"][i],
+                    se)
                 x = x + h
-                x = x + L.mlp_apply(ap["mlp"],
-                                    L.rmsnorm(x, ap["ln2"], cfg.norm_eps))
-        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        logits = L.unembed(x, params["head"], tied=False)
-        return logits, dict(cache, pos=pos)
+                x = x + L.mesh_mlp(ap["mlp"], L.rmsnorm(
+                    x, shd.local(ap["ln2"], "embed"), cfg.norm_eps))
+        logits = self._lm._logits(params, self._final(params, x))
+        if mesh is not None:
+            # the cache's own DTensors hold the writes; the blocks of
+            # plain whole leaves are placed
+            loc = shd.place_local_tree(
+                {k: pm.tree_map(lambda c, b: c if isinstance(c, DTensor)
+                                else b, cache[k], v)
+                 for k, v in loc.items() if k != "pos"} | {"pos": pos},
+                names, cache)
+        else:
+            loc["pos"] = pos
+        return self._lm._place_logits(batch, logits), loc
 
     # specs -------------------------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
@@ -456,6 +519,12 @@ class Zamba2Model:
         if shape.kind == "train":
             spec["labels"] = pm.meta((B, S), torch.int32)
         return spec
+
+    def input_logical(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        out = {"tokens": ("batch", None)}
+        if shape.kind == "train":
+            out["labels"] = ("batch", None)
+        return out
 
     def cache_specs(self, shape: ShapeConfig) -> Dict:
         cfg, s = self.cfg, self.cfg.ssm
@@ -480,6 +549,19 @@ class Zamba2Model:
                 "group_ssm": ssm(g), "group_conv": conv(g),
                 "tail_ssm": ssm(t), "tail_conv": conv(t),
                 "pos": pm.meta((), torch.int32)}
+
+    def cache_logical(self, shape: Optional[ShapeConfig]) -> Dict:
+        return {"attn_k": tfm.CACHE_LOGICAL, "attn_v": tfm.CACHE_LOGICAL,
+                "group_ssm": ("layers", "layers", "batch", "mamba_heads",
+                              None, None),
+                "group_conv": {"x": ("layers", "layers", "batch", None,
+                                     "ffn"),
+                               "bc": ("layers", "layers", "batch", None,
+                                      None)},
+                "tail_ssm": ("layers", "batch", "mamba_heads", None, None),
+                "tail_conv": {"x": ("layers", "batch", None, "ffn"),
+                              "bc": ("layers", "batch", None, None)},
+                "pos": ()}
 
     def init_cache(self, shape: ShapeConfig,
                    device: DeviceLike = None) -> Dict:

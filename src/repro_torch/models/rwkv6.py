@@ -32,8 +32,18 @@ as ``cfg.remat`` says.  Under autograd each token of ``wkv_scan`` keeps
 a few (B, H, K, K) fp32 tensors, about 2 MB a sequence at rwkv6-3b's
 widths; the per-layer checkpoint keeps one layer's loop at a time, as
 the reference's nested checkpointed scans bound theirs.
-``cache_logical`` and the mesh branches wait for ROADMAP Queue 1 item
-8c.
+
+On a mesh (``distributed.sharding.use_mesh`` with a DeviceMesh and
+``registry.make_rules``) each rank computes on its batch block.  The
+five square time-mix projections and the channel mix's ``wr`` are
+``("attn_din", "rwkv_out")``, used as ``("attn_din_c", "rwkv_out_c")``
+(``layers.linear``): whole under head-TP prefill rules, gathered from
+their ``data`` blocks under FSDP, and under decode rules contracted on
+``model`` (a psum).  The channel mix's ``wk``/``wv`` are Megatron over
+``ffn`` (a psum), the WKV recurrence and the per-head group norm run on
+whole heads (``rwkv_out`` never shards), the embedding, head and CE are
+vocab-parallel, and the states are batch-blocked as ``cache_logical``
+says.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 from repro_torch.models import params as pm
 from repro_torch.models import transformer as tfm
@@ -87,6 +98,11 @@ def rwkv6_table(cfg: ModelConfig) -> dict:
     }
 
 
+#: the square projections' names at use (``rwkv6_table`` stores them
+#: as ``("attn_din", "rwkv_out")``)
+_SQUARE = ("attn_din_c", "rwkv_out_c")
+
+
 def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor):
     """Sequential WKV, one step a token (the reference's ``_wkv_scan``,
@@ -125,6 +141,12 @@ def time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     B, S, d = x.shape
     H = cfg.num_heads
     K = cfg.resolved_head_dim
+    # the square projections go to layers.linear whole; the rest are
+    # this rank's blocks (the leaves themselves with no mesh)
+    w_ = {k: p[k] for k in ("wr", "wk", "wv", "wg", "wo")}
+    names = rwkv6_table(cfg)["tm"]
+    p = {k: shd.local(v, *names[k].names) for k, v in p.items()
+         if k not in w_}
     xx = _token_shift(x, prev_x)
     sx = xx - x
     xxx = x + sx * p["x_maa"]
@@ -133,10 +155,10 @@ def time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     xw, xk, xv, xr, xg = [
         x + sx * (p["maa"][i] + m[:, :, i]) for i in range(5)]
 
-    r = L.matmul(xr, p["wr"]).reshape(B, S, H, K)
-    kk = L.matmul(xk, p["wk"]).reshape(B, S, H, K)
-    vv = L.matmul(xv, p["wv"]).reshape(B, S, H, K)
-    g = F.silu(L.matmul(xg, p["wg"]).float()).to(x.dtype)
+    r = L.linear(xr, w_["wr"], _SQUARE).reshape(B, S, H, K)
+    kk = L.linear(xk, w_["wk"], _SQUARE).reshape(B, S, H, K)
+    vv = L.linear(xv, w_["wv"], _SQUARE).reshape(B, S, H, K)
+    g = F.silu(L.linear(xg, w_["wg"], _SQUARE).float()).to(x.dtype)
 
     dec = p["decay"] + L.matmul(torch.tanh(L.matmul(xw, p["decay_w1"])),
                                 p["decay_w2"])
@@ -149,19 +171,24 @@ def time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     var = y.var(-1, keepdim=True, correction=0)
     yh = (y - mu) * torch.rsqrt(var + 64e-5)
     y = yh.reshape(B, S, d) * (1.0 + p["ln_x_w"]) + p["ln_x_b"]
-    out = L.matmul(y.to(x.dtype) * g, p["wo"])
+    out = L.linear(y.to(x.dtype) * g, w_["wo"], _SQUARE)
     return out, x[:, -1], Sf
 
 
 def channel_mix(p: dict, x: torch.Tensor, prev_x: torch.Tensor):
-    """-> (out, the last token's x for the next shift)."""
+    """-> (out, the last token's x for the next shift).  On a mesh
+    ``wk``/``wv`` are Megatron over ``ffn``: this rank's hidden columns,
+    then a psum."""
+    fspec = (None if shd.device_mesh() is None
+             else shd.spec(p["wk"], "embed", "ffn")[1])
     xx = _token_shift(x, prev_x)
     sx = xx - x
-    xk = x + sx * p["k_maa"]
-    xr = x + sx * p["r_maa"]
-    k = torch.square(F.relu(L.matmul(xk, p["wk"]).float())).to(x.dtype)
-    v = L.matmul(k, p["wv"])
-    r = torch.sigmoid(L.matmul(xr, p["wr"]).float()).to(x.dtype)
+    xk = x + sx * shd.local(p["k_maa"], "embed")
+    xr = x + sx * shd.local(p["r_maa"], "embed")
+    k = torch.square(F.relu(L.matmul(
+        xk, shd.local(p["wk"], "embed", "ffn")).float())).to(x.dtype)
+    v = L.psum_matmul(k, shd.local(p["wv"], "ffn", "embed"), fspec)
+    r = torch.sigmoid(L.linear(xr, p["wr"], _SQUARE).float()).to(x.dtype)
     return r * v, x[:, -1]
 
 
@@ -169,6 +196,7 @@ class RWKV6Model:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.vp = tfm.padded_vocab(cfg.vocab_size)
+        self._lm = tfm.DecoderLM(cfg)   # the vocab-parallel head and CE
 
     def _top_table(self) -> dict:
         return {
@@ -193,8 +221,7 @@ class RWKV6Model:
 
     def param_specs(self) -> Dict:
         """The logical-name tree of the parameters (``optimizer.
-        state_specs`` reads it); its mesh branches wait for ROADMAP
-        Queue 1 item 8c."""
+        state_specs`` and the mesh placement read it)."""
         specs = pm.table_specs(self._top_table())
         specs["layers"] = pm.table_specs(rwkv6_table(self.cfg),
                                          prefix=("layers",))
@@ -213,11 +240,11 @@ class RWKV6Model:
 
     def _layer(self, lp, x, tm_state, tm_prev, cm_prev):
         cfg = self.cfg
-        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        h = L.rmsnorm(x, shd.local(lp["ln1"], "embed"), cfg.norm_eps)
         dt_, tm_prev_new, tm_state_new = time_mix(
             lp["tm"], h, cfg, tm_prev, tm_state)
         x = x + dt_
-        h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        h = L.rmsnorm(x, shd.local(lp["ln2"], "embed"), cfg.norm_eps)
         dc, cm_prev_new = channel_mix(lp["cm"], h, cm_prev)
         return x + dc, tm_state_new, tm_prev_new, cm_prev_new
 
@@ -235,25 +262,27 @@ class RWKV6Model:
         """Hidden states after the final norm, and the new (tm_state,
         tm_prev, cm_prev), each stacked over layers; ``states`` (zeros
         when None) is read, not written.  ``train`` checkpoints each
-        layer as ``cfg.remat`` says."""
+        layer as ``cfg.remat`` says.  On a mesh the hidden states and
+        ``states`` are this rank's batch block."""
         cfg = self.cfg
-        x = L.embed_lookup(params["embed"], batch["tokens"])
+        x = L.mesh_embed(params["embed"], batch["tokens"])
         if states is None:
             states = self._zero_states(x.shape[0], x.device)
         new = tuple(torch.empty_like(s) for s in states)
         layer = tfm._remat(self._layer, cfg.remat if train else "none")
-        for i, lp in enumerate(pm.unstack(params["layers"],
-                                          cfg.num_layers)):
+        for i, lp in enumerate(L.unstack(params["layers"],
+                                         cfg.num_layers)):
             x, *st = layer(lp, x, *(s[i] for s in states))
             for buf, s in zip(new, st):
                 buf[i].copy_(s)
-        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), new
+        return L.rmsnorm(x, shd.local(params["final_norm"], "embed"),
+                         cfg.norm_eps), new
 
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
-        x, _ = self.forward(params, batch, train=True)
-        logits = L.unembed(x, params["head"], tied=False)
-        return tfm.cross_entropy(logits, batch["labels"],
-                                 self.cfg.vocab_size).mean()
+        """Mean next-token CE; on a mesh vocab-parallel over the global
+        batch (``DecoderLM.mean_ce``)."""
+        return self._lm.mean_ce(params, self.forward(params, batch,
+                                                     train=True)[0], batch)
 
     # serving ----------------------------------------------------------
     def prefill(self, params: Dict, batch: Dict,
@@ -262,20 +291,30 @@ class RWKV6Model:
         ``cache_len`` is accepted for the uniform model API and
         ignored, as in the reference."""
         x, (tm_state, tm_prev, cm_prev) = self.forward(params, batch)
-        logits = L.unembed(x[:, -1:], params["head"], tied=False)
+        logits = self._lm._logits(params, x[:, -1:])
         cache = {"tm_state": tm_state, "tm_prev": tm_prev,
                  "cm_prev": cm_prev,
                  "pos": torch.full((), batch["tokens"].shape[1] - 1,
                                    dtype=torch.int32, device=x.device)}
-        return logits, cache
+        if shd.device_mesh() is not None:
+            whole = self.cache_specs(ShapeConfig(
+                "state", 1, batch["tokens"].shape[0], "prefill"))
+            cache = shd.place_local_tree(cache, self.cache_logical(None),
+                                         whole)
+        return self._lm._place_logits(batch, logits), cache
 
     def decode_step(self, params: Dict, cache: Dict, batch: Dict):
         """One token for the whole batch. batch: {"tokens": (B,1)}."""
-        states = (cache["tm_state"], cache["tm_prev"], cache["cm_prev"])
+        names = self.cache_logical(None)
+        states = tuple(shd.local(cache[k], *names[k])
+                       for k in ("tm_state", "tm_prev", "cm_prev"))
         x, (st, tp, cp) = self.forward(params, batch, states=states)
-        logits = L.unembed(x, params["head"], tied=False)
-        return logits, {"tm_state": st, "tm_prev": tp, "cm_prev": cp,
-                        "pos": cache["pos"] + 1}
+        logits = self._lm._logits(params, x)
+        new = {"tm_state": st, "tm_prev": tp, "cm_prev": cp,
+               "pos": shd.local(cache["pos"]) + 1}
+        if shd.device_mesh() is not None:
+            new = shd.place_local_tree(new, names, cache)
+        return self._lm._place_logits(batch, logits), new
 
     # specs --------------------------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
@@ -288,6 +327,12 @@ class RWKV6Model:
             spec["labels"] = pm.meta((B, S), torch.int32)
         return spec
 
+    def input_logical(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        out = {"tokens": ("batch", None)}
+        if shape.kind == "train":
+            out["labels"] = ("batch", None)
+        return out
+
     def cache_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         B = shape.global_batch
@@ -298,6 +343,12 @@ class RWKV6Model:
                                     torch.float32),
                 "tm_prev": prev, "cm_prev": prev,
                 "pos": pm.meta((), torch.int32)}
+
+    def cache_logical(self, shape: Optional[ShapeConfig]) -> Dict[str, Tuple]:
+        return {"tm_state": ("layers", "batch", None, None, None),
+                "tm_prev": ("layers", "batch", "embed"),
+                "cm_prev": ("layers", "batch", "embed"),
+                "pos": ()}
 
     def init_cache(self, shape: ShapeConfig,
                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:

@@ -150,6 +150,30 @@ def cross_entropy_mesh(logits: torch.Tensor, labels: torch.Tensor,
     return lse - ll
 
 
+def mean_ce_mesh(logits: torch.Tensor, labels: torch.Tensor,
+                 vocab_real: int, vocab_entry: shd.Entry,
+                 batch_entry: shd.Entry) -> torch.Tensor:
+    """The mean CE over the global batch of a rank's logits block
+    (its batch block over ``batch_entry``, its vocab block over
+    ``vocab_entry``): :func:`cross_entropy_mesh` summed over the block,
+    psummed over the batch axes, over the global count."""
+    ce = cross_entropy_mesh(logits, labels, vocab_real, vocab_entry)
+    return (shd.psum(ce.sum(), batch_entry)
+            / (ce.numel() * shd.entry_index(batch_entry)[1]))
+
+
+def place_kv_cache(c: torch.Tensor, batch: int) -> torch.Tensor:
+    """A stacked (L, B, T, kv, D) cache of this rank's batch block,
+    placed as ``CACHE_LOGICAL`` on the active mesh: the rank keeps its
+    ``kv_seq`` slice of its block (``batch`` is the global batch)."""
+    shape = (c.shape[0], batch) + tuple(c.shape[2:])
+    sspec = shd.resolve_for_shape(("kv_seq",), (shape[2],))[0]
+    i, n = shd.entry_index(sspec)
+    t = shape[2] // n
+    return shd.place_local(c.narrow(2, i * t, t).contiguous(), CACHE_LOGICAL,
+                           shape)
+
+
 def pad_cache(kv: torch.Tensor, cache_len: Optional[int],
               axis: int = 2) -> torch.Tensor:
     """Pad a stacked (L,B,S,...) prefill cache out to cache_len slots."""
@@ -300,33 +324,46 @@ class DecoderLM:
         out = o.flatten(-2) @ lp["wo"].flatten(0, 1)
         return out, kv
 
-    def _attention_mesh(self, lp, x, pos, train: bool = False):
+    def _attention_mesh(self, lp, x, pos, train: bool = False, kv_src=None,
+                        causal: bool = True, keep_kv: bool = True):
         """Prefill (or train) attention on a mesh: this rank's heads under
         head-TP, its query rows under context parallelism; the cache's
         K/V with every kv head.  ``train`` takes the blocked attention
-        where serving takes the kernel."""
+        where serving takes the kernel.  ``kv_src`` (whisper's encoder
+        output) gives the K/V in place of ``x``, ``pos`` None skips rope,
+        and with ``keep_kv`` False no K/V is returned, so that under
+        head-TP with the kv heads cut as the heads a rank keeps its own
+        and gathers none."""
         cfg = self.cfg
         Hp, Hkv = cfg.padded_heads, cfg.num_kv_heads
         hspec = shd.resolve_for_shape(("heads",), (Hp,))[0]
         kvspec = shd.resolve_for_shape(("kv_heads",), (Hkv,))[0]
+        src = x if kv_src is None else kv_src
         q = L.mesh_heads(x, lp["wq"], ("attn_din_c", "heads", "head_dim"))
-        k = L.mesh_heads(x, lp["wk"], ("attn_din_c", "kv_heads", "head_dim"))
-        v = L.mesh_heads(x, lp["wv"], ("attn_din_c", "kv_heads", "head_dim"))
+        k = L.mesh_heads(src, lp["wk"], ("attn_din_c", "kv_heads",
+                                         "head_dim"))
+        v = L.mesh_heads(src, lp["wv"], ("attn_din_c", "kv_heads",
+                                         "head_dim"))
         q, k, v = L._finish_qkv(_local_small(lp), q, k, v, cfg, pos)
-        k, v = shd.all_gather(k, kvspec, 2), shd.all_gather(v, kvspec, 2)
-        kv = (k, v)
+        own = not keep_kv and hspec is not None and kvspec == hspec
+        if not own:
+            k, v = shd.all_gather(k, kvspec, 2), shd.all_gather(v, kvspec, 2)
+        kv = (k, v) if keep_kv else None
         i, n = shd.entry_index(hspec)
         if hspec is not None:
             # GQA + head-TP: expand kv to the (padded) heads, then this
-            # rank's: the kernel runs on its local heads
+            # rank's (its own kv heads' groups are already its heads):
+            # the kernel runs on its local heads
             G, h = Hp // Hkv, Hp // n
-            k = k.repeat_interleave(G, dim=2).narrow(2, i * h, h).contiguous()
-            v = v.repeat_interleave(G, dim=2).narrow(2, i * h, h).contiguous()
-            o = self._local_attention(q, k, v, train)
+            k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+            if not own:
+                k, v = k.narrow(2, i * h, h), v.narrow(2, i * h, h)
+            o = self._local_attention(q, k.contiguous(), v.contiguous(),
+                                      train, causal)
         elif L.use_context_parallel(shd.device_mesh(), q.shape[1]):
-            o = L.context_parallel_attention(q, k, v, causal=True)
+            o = L.context_parallel_attention(q, k, v, causal=causal)
         else:
-            o = self._local_attention(q, k, v, train)
+            o = self._local_attention(q, k, v, train, causal)
         mask = L.head_mask(cfg, o.dtype, o.device)
         if mask is not None:
             mask = mask.narrow(0, i * (Hp // n), Hp // n)
@@ -335,15 +372,18 @@ class DecoderLM:
         return out, kv
 
     @staticmethod
-    def _local_attention(q, k, v, train: bool):
-        """Causal attention on this device's (or rank's) heads: the
-        blocked attention in training (the kernel has no backward), else
-        the kernel."""
+    def _local_attention(q, k, v, train: bool, causal: bool = True):
+        """Attention on this device's (or rank's) heads: the blocked
+        attention in training (the kernel has no backward), else the
+        kernel in q's and k's promoted dtype (whisper's bf16 q meets its
+        fp32 encoder's K/V), its output in q's."""
         if train:
             return L.flash_attention_blocked(
-                q, k, v, causal=True, q_block=min(512, q.shape[1]),
+                q, k, v, causal=causal, q_block=min(512, q.shape[1]),
                 kv_block=min(1024, k.shape[1]))
-        return L.flash_attention(q, k, v, causal=True)
+        dt = torch.promote_types(q.dtype, k.dtype)
+        return L.flash_attention(q.to(dt), k.to(dt), v.to(dt),
+                                 causal=causal).to(q.dtype)
 
     def _ffn(self, lp, hn, batch_entry: shd.Entry = None,
              train: bool = False):
@@ -353,9 +393,7 @@ class DecoderLM:
         if self.cfg.moe is not None:
             return moe_mod.moe_apply(lp["moe"], hn, self.cfg,
                                      batch_entry=batch_entry, train=train)
-        if shd.device_mesh() is not None:
-            return L.mesh_mlp(lp["mlp"], hn), 0.0
-        return L.mlp_apply(lp["mlp"], hn), 0.0
+        return L.mesh_mlp(lp["mlp"], hn), 0.0
 
     def _layer(self, lp, x, pos, train: bool = False,
                batch_entry: shd.Entry = None):
@@ -370,11 +408,7 @@ class DecoderLM:
 
     def _layers(self, params) -> list:
         """The per-layer parameter trees (DTensors on a mesh)."""
-        if shd.device_mesh() is None:
-            return pm.unstack(params["layers"], self.cfg.num_layers)
-        parts = pm.tree_map(shd.unbind0, params["layers"])
-        return [pm.tree_map(lambda t: t[i], parts)
-                for i in range(self.cfg.num_layers)]
+        return L.unstack(params["layers"], self.cfg.num_layers)
 
     def _batch_entry(self, batch) -> shd.Entry:
         """The mesh axes the batch block is sharded over (None without
@@ -387,11 +421,7 @@ class DecoderLM:
     def _embed_inputs(self, params, batch) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
         cfg = self.cfg
-        if shd.device_mesh() is not None:
-            x = L.mesh_embed(params["embed"],
-                             shd.local(batch["tokens"], "batch", None))
-        else:
-            x = L.embed_lookup(params["embed"], batch["tokens"])
+        x = L.mesh_embed(params["embed"], batch["tokens"])
         if cfg.family == "vlm":
             mp = _local_small(params["mm_proj"])
             img = shd.local(batch["images"], "batch", None, None).to(x.dtype)
@@ -446,6 +476,19 @@ class DecoderLM:
         shape = (batch["tokens"].shape[0],) + tuple(logits.shape[1:-1]) + (
             self.vp,)
         return shd.place_local(logits, ("batch", "seq", "vocab"), shape)
+
+    def mean_ce(self, params, x, batch) -> torch.Tensor:
+        """The mean next-token CE of hidden states ``x`` against
+        ``batch["labels"]``, unchunked and unmasked (whisper's, zamba2's
+        and rwkv6's loss); on a mesh vocab-parallel over the global
+        batch (:func:`mean_ce_mesh`)."""
+        logits = self._logits(params, x)
+        if shd.device_mesh() is None:
+            return cross_entropy(logits, batch["labels"],
+                                 self.cfg.vocab_size).mean()
+        return mean_ce_mesh(logits, shd.local(batch["labels"], "batch", None),
+                            self.cfg.vocab_size, self._vocab_entry(params),
+                            self._batch_entry(batch))
 
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token CE (over ``loss_mask`` when the batch has one;
@@ -523,13 +566,7 @@ class DecoderLM:
             # this rank keeps its kv_seq slice of its batch block's cache
             B = batch["tokens"].shape[0]
             for name in ("k", "v"):
-                c = cache[name]
-                shape = (c.shape[0], B) + tuple(c.shape[2:])
-                sspec = shd.resolve_for_shape(("kv_seq",), (shape[2],))[0]
-                i, n = shd.entry_index(sspec)
-                t = shape[2] // n
-                cache[name] = shd.place_local(
-                    c.narrow(2, i * t, t).contiguous(), CACHE_LOGICAL, shape)
+                cache[name] = place_kv_cache(cache[name], B)
             cache["pos"] = shd.place_local(cache["pos"], (), ())
         return self._place_logits(batch, logits), cache
 
@@ -554,11 +591,8 @@ class DecoderLM:
         mask = L.head_mask(cfg, o.dtype, o.device)
         if mask is not None:
             o = o * mask[None, :, None]
-        if shd.device_mesh() is None:
-            out = (o.flatten(-2) @ lp["wo"].flatten(0, 1))[:, None, :]
-        else:
-            out = L.mesh_out(o, lp["wo"],
-                             ("heads", "head_dim", "attn_dout"))[:, None, :]
+        out = L.mesh_out(o, lp["wo"],
+                         ("heads", "head_dim", "attn_dout"))[:, None, :]
         return out, kc, vc
 
     def decode_step(self, params, cache, batch):
@@ -569,11 +603,7 @@ class DecoderLM:
         the advanced device ``pos``."""
         cfg = self.cfg
         mesh = shd.device_mesh()
-        if mesh is None:
-            x = L.embed_lookup(params["embed"], batch["tokens"])
-        else:
-            x = L.mesh_embed(params["embed"],
-                             shd.local(batch["tokens"], "batch", None))
+        x = L.mesh_embed(params["embed"], batch["tokens"])
         pos = shd.local(cache["pos"]) + 1
         ks = shd.local(cache["k"], *CACHE_LOGICAL)
         vs = shd.local(cache["v"], *CACHE_LOGICAL)

@@ -4,9 +4,10 @@ reference's, and against the port's own single-device results.
 
 - Pure Python: ``registry.make_rules`` equals the reference's for every
   arch x mode x mesh shape, and ``resolve_for_shape`` equals the
-  reference's ``PartitionSpec`` for every parameter leaf of the DLRM and
-  DecoderLM archs (mesh shapes as dicts; the reference reads only the
-  mesh's ``shape`` there).
+  reference's ``PartitionSpec`` for every parameter leaf, every
+  ``input_logical`` leaf and every ``cache_logical`` leaf of every arch
+  (mesh shapes as dicts; the reference reads only the mesh's ``shape``
+  there).
 - Meshes (data 2, model 2) and (1, 4): the reference runs in one JAX
   subprocess per mesh with four host devices (``XLA_FLAGS``), its meshes
   built as ``jax.sharding.Mesh(devices.reshape(shape), names)``, whose
@@ -99,7 +100,8 @@ def _leaves(tree, path=""):
 
 SPEC_ARCHS = [a for a in tconfigs.list_archs()
               if tconfigs.get_config(a).family in ("dense", "moe", "vlm",
-                                                   "dlrm")]
+                                                   "dlrm", "audio", "hybrid",
+                                                   "ssm")]
 
 
 @pytest.mark.parametrize("mesh", list(MESH_SHAPES))
@@ -127,6 +129,56 @@ def test_resolve_for_shape_matches(arch, mode, mesh):
         for (path, names), (_, s) in zip(
                 _leaves(tm.param_specs()), _leaves(tm.param_shapes())):
             got[path] = tshd.resolve_for_shape(names, s.shape)
+    assert got == want
+    assert any(e is not None for spec in got.values() for e in spec) or \
+        shape == (1, 1)
+
+
+@pytest.mark.parametrize("mesh", list(MESH_SHAPES))
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
+def test_input_and_cache_specs_match(arch, mode, mesh):
+    """Every ``input_logical`` leaf of a ``mode`` cell (batch 32, 2048
+    positions) and every ``cache_logical`` leaf, resolved for its shape
+    under the mode's rules, equals the reference's ``PartitionSpec``
+    entry for entry (an input without logical names is unsharded in
+    both)."""
+    from repro.configs.base import ShapeConfig as JShape
+    from repro_torch.configs.base import ShapeConfig as TShape
+
+    shape = MESH_SHAPES[mesh]
+    jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    jm, tm = jregistry.build(jcfg), tregistry.build(tcfg)
+    jmesh = _ShapeMesh(shape)
+    tmesh = dict(zip(("data", "model"), shape))
+    jshape, tshape = JShape("s", 2048, 32, mode), TShape("s", 2048, 32, mode)
+    jrules = jregistry.make_rules(jcfg, jmesh, mode)
+    trules = tregistry.make_rules(tcfg, tmesh, mode)
+
+    def resolved(shd, model, cell, sizes):
+        logical = model.input_logical(cell)
+        out = {f"/input/{k}": tuple(shd.resolve_for_shape(
+            logical.get(k) or (None,) * len(v.shape), tuple(v.shape)))
+            for k, v in model.input_specs(cell).items()}
+        if hasattr(model, "cache_logical"):
+            specs = model.cache_specs(cell)
+            leaves = dict(_leaves(sizes(specs)))
+            for path, names in _leaves(model.cache_logical(cell)):
+                out["/cache" + path] = tuple(shd.resolve_for_shape(
+                    names, leaves[path]))
+        return out
+
+    def jsizes(specs):
+        return jax.tree.map(lambda s: tuple(s.shape), specs)
+
+    def tsizes(specs):
+        from repro_torch.models.params import tree_map
+        return tree_map(lambda s: tuple(s.shape), specs)
+
+    with jshd.use_mesh(jmesh, jrules):
+        want = resolved(jshd, jm, jshape, jsizes)
+    with tshd.use_mesh(tmesh, trules):
+        got = resolved(tshd, tm, tshape, tsizes)
     assert got == want
     assert any(e is not None for spec in got.values() for e in spec) or \
         shape == (1, 1)
