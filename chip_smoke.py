@@ -228,7 +228,7 @@ with a non-zero exit and no result line):
    slots) and zamba2-7b (81 layers: 14 Mamba heads and 8 attention
    heads a rank; batch 4, prompt 512, 1024 slots) on (1, 4), rwkv6-3b
    (32 layers, batch 2 a rank) on (2, 2), each at its published widths
-   in bf16, 8 steps, one spawn each with its fp32 copies (whisper 2 + 2
+   in bf16, 4 steps, one spawn each with its fp32 copies (whisper 2 + 2
    layers, once under head-TP and once under the FSDP rules, where the
    encoder and both decoder attentions run context parallelism; zamba2
    7; rwkv6 2): every rank's attention launches a prefill (whisper 96,
@@ -283,7 +283,20 @@ with a non-zero exit and no result line):
    card's, the collectives' share of one more step's wall (host time
    inside ``sharding._reduce``/``_gather``, each from a synchronised
    card), the gradient all-reduce's payload a step, and the save and
-   restore times.
+   restore times;
+17. dryrun: the multi-pod dry run (``repro_torch.launch.dryrun``), which
+   needs no card: (a) ``run_cell`` for smollm-135m and qwen2-moe-a2.7b
+   at every shape on both production meshes (256 and 512 ranks of a
+   fake process group, fake tensors), in worker processes, each
+   record's console line and the phase's wall time; (b) at
+   ``mesh_shape=(1, 4)`` and ``[mesh]``'s smollm-135m shapes (batch 8,
+   prompt 1024, 2048 slots): the argument bytes equal to what
+   ``[mesh]``'s rank 0 placed (its local blocks of the weights, the
+   cache and the tokens) and the kernel calls equal to its launches,
+   prefill and a decode step, exactly; the predicted peak (the record's
+   ``total_per_device_bytes``) beside the rank's
+   ``max_memory_allocated``, as a ratio; (c) ``ops.LAUNCHES`` untouched
+   by the fake path.
 
 All timing lives here, never in ``src/`` (the repo's linter bans host
 clocks there).  The line before the last is ``{"kernels": [...]}``; the
@@ -595,10 +608,9 @@ def time_kernel(name, flat, offsets, idx, launches, card):
     library_ms = median_ms(library, iters=50)
     dev_ms = device_ms(lambda: kernel(flat, offsets, idx))
     library_dev_ms = device_ms(library)
-    nbytes = (n_valid * D * flat.element_size() + B * T * P * 4 + T * 4
-              + B * T * D * 4)
+    nbytes, flops = work(name, flat, idx, live=n_valid)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_valid * D / FP32_OPS_PER_S * 1e3
+    ops_ms = flops / FP32_OPS_PER_S * 1e3
     row = {"name": name, "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
            "replaces": KERNELS[name], "launches": launches,
@@ -944,26 +956,12 @@ def peak_ops(dtype) -> float:
     return BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
 
 
-def attention_work(q, k, causal):
-    """(bytes, flops) of one flash-attention call: q, k, v read and o
-    written once; Q K^T and P V over the (query, key) pairs the mask
-    keeps."""
-    B, H, S, D = q.shape
-    Hkv, T = k.shape[1], k.shape[2]
-    pairs = (sum(min(i + 1, T) for i in range(S)) if causal else S * T)
-    return ((2 * B * H * S * D + 2 * B * Hkv * T * D) * q.element_size(),
-            4 * B * H * D * pairs)
-
-
-def decode_work(q, kc, n):
-    """(bytes, flops) of one flash-decode call over ``n`` live cache
-    rows: those rows of K and V and q read once, the fp32 partials
-    written once."""
-    B, H, D = q.shape
-    Hkv = kc.shape[2]
-    return (2 * B * n * Hkv * D * kc.element_size()
-            + B * H * D * q.element_size() + B * H * (D + 2) * 4,
-            4 * B * H * D * n)
+def work(name, *operands, **kw):
+    """(bytes, flops) of one call of kernel ``name`` on these operands:
+    ``ops.kernel_cost``, the definition the dry run costs by too."""
+    from repro_torch.kernels import ops
+    flops, nbytes = ops.kernel_cost(name, *operands, **kw)
+    return nbytes, flops
 
 
 def kernel_row(name, ms, plain_ms, library_ms, err, launches, nbytes, flops,
@@ -1094,7 +1092,7 @@ def time_attention(q, k, v, kw, launches, card):
                     .max())
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
-    nbytes, flops = attention_work(q, k, causal)
+    nbytes, flops = work("flash_attention", q, k, causal=causal)
     ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
                    iters=50)
     plain_ms = median_ms(lambda: flash_attention_plain(q, k, v, **kw),
@@ -1152,7 +1150,7 @@ def time_decode(q, kc, vc, pos, kw, launches, card):
     vh = vc[:, :n].transpose(1, 2)
     lib_err = float((_sdpa(qh, kh, vh, False)[:, :, 0].float()
                      - combine_partials(*got)).abs().max())
-    nbytes, flops = decode_work(q, kc, n)
+    nbytes, flops = work("flash_decode_partial", q, kc, live=n)
     ms = median_ms(lambda: ops.flash_decode_partial(q, kc, vc, pos, **kw),
                    iters=50)
     plain_ms = median_ms(lambda: flash_decode_plain(q, kc, vc, pos, **kw),
@@ -1268,10 +1266,9 @@ def sharded_phase(dev, cfg, model, params, reqs, card):
                          iters=5, warmup=1)
     library_ms = median_ms(library, iters=50)
     B, _, P = idx_p.shape
-    nbytes = (n_valid * D * stack.element_size() + B * T * P * 4
-              + B * T * D * stack.element_size())
+    nbytes, flops = work("embedding_bag", stack, idx_p, live=n_valid)
     row = kernel_row("embedding_bag", ms, plain_ms, library_ms, err,
-                     launches["embedding_bag"], nbytes, n_valid * D,
+                     launches["embedding_bag"], nbytes, flops,
                      FP32_OPS_PER_S)
     row["device_ms"] = device_ms(lambda: ops.embedding_bag(stack, idx_p))
     row["library_device_ms"] = device_ms(library)
@@ -1774,7 +1771,8 @@ def zoo_model(arch, layers, dev, card, tag: str = "zoo",
     for (causal, square), args in sorted(probe.attn.items()):
         _, err, ms, lib = hold_attention(*args)
         q, k = args[0], args[1]
-        b, by = bound(*attention_work(q, k, causal), peak_ops(q.dtype))
+        b, by = bound(*work("flash_attention", q, k, causal=causal),
+                      peak_ops(q.dtype))
         held.append(f"attention {tuple(q.shape)} over T={k.shape[2]} "
                     f"causal={causal}: err {err:.3g}, device {ms:.5f} ms "
                     f"(SDPA {lib:.5f}; bound {b:.5f}, {by})")
@@ -1783,8 +1781,8 @@ def zoo_model(arch, layers, dev, card, tag: str = "zoo",
                             ("last", probe.decode_last[T])):
             _, err, ms, lib = hold_decode(*args)
             q, kc = args[0], args[1]
-            b, by = bound(*decode_work(q, kc, live_rows(kc, args[3],
-                                                        args[4])),
+            b, by = bound(*work("flash_decode_partial", q, kc,
+                                live=live_rows(kc, args[3], args[4])),
                           peak_ops(q.dtype))
             held.append(f"decode {which} over T={T} pos={int(args[3])} "
                         f"{tuple(q.shape)}: err {err:.3g}, device "
@@ -2339,11 +2337,11 @@ MESH_COPIES = {("smollm-135m", "float32"): (2, 8, 128, 256, 8),
 #: the encoder-decoder and recurrent families at their published widths,
 #: bf16, one spawn of the ranks each: arch -> (model axis size, batch,
 #: prompt, cache slots, decode steps); whisper's prompt and slots are
-#: [zoo]'s, behind its 1500 frames; 8 decode steps, cut from [zoo]'s 16
+#: [zoo]'s, behind its 1500 frames; 4 decode steps, cut from [zoo]'s 16
 #: for the script's time (1.3 s a step on the mesh)
-MESH_ZOO = {"whisper-large-v3": (4, ZOO_BATCH, 64, 256, 8),
-            "zamba2-7b": (4, ZOO_BATCH, 512, 1024, 8),
-            "rwkv6-3b": (2, ZOO_BATCH, 512, 1024, 8)}
+MESH_ZOO = {"whisper-large-v3": (4, ZOO_BATCH, 64, 256, 4),
+            "zamba2-7b": (4, ZOO_BATCH, 512, 1024, 4),
+            "rwkv6-3b": (2, ZOO_BATCH, 512, 1024, 4)}
 #: whisper under the FSDP rules on (1, 4): heads whole, so the encoder,
 #: the decoder's self- and its cross-attention run context parallelism
 WHISPER_FSDP = {"heads": None, "kv_heads": None, "attn_din": ("data",),
@@ -2353,10 +2351,10 @@ WHISPER_FSDP = {"heads": None, "kv_heads": None, "attn_din": ("data",),
 #: (arch, what) -> (layers, batch, prompt, cache slots, decode steps,
 #: prefill rule overrides)
 MESH_ZOO_COPIES = {
-    ("whisper-large-v3", "head-TP"): (2, 2, 64, 128, 8, None),
-    ("whisper-large-v3", "FSDP + CP"): (2, 2, 64, 128, 8, WHISPER_FSDP),
-    ("zamba2-7b", "head-TP"): (RECURRENT_FP32_LAYERS, 2, 128, 256, 8, None),
-    ("rwkv6-3b", "head-TP"): (2, 2, 128, 256, 8, None)}
+    ("whisper-large-v3", "head-TP"): (2, 2, 64, 128, 4, None),
+    ("whisper-large-v3", "FSDP + CP"): (2, 2, 64, 128, 4, WHISPER_FSDP),
+    ("zamba2-7b", "head-TP"): (RECURRENT_FP32_LAYERS, 2, 128, 256, 4, None),
+    ("rwkv6-3b", "head-TP"): (2, 2, 128, 256, 4, None)}
 #: the bf16 archs whose mesh logits drift past ten bf16 steps with depth
 #: (rwkv6-3b on (2, 2) on an H100: 1.9-2.4 of them): each call is held
 #: instead to a witness of the same precision, how far one device's own
@@ -2682,14 +2680,22 @@ def mesh_lm_rank(rank: int, p) -> dict:
            "card_steps": card,
            "weights_gb": torch.cuda.memory_allocated() / 1e9}
     logits_out, own = [], []
+    batch = dict(extra, tokens=toks)
+    out["placed_bytes"] = {"prefill": placed_bytes(
+        model, placed, batch, ShapeConfig("p", S, B, "prefill"), mesh,
+        prules)}
     with MeshProbe() as probe:
         ops.reset_launches()
         t0 = time.perf_counter()
         probe.in_prefill = True
-        logits, cache = pf(placed, dict(extra, tokens=toks))
+        logits, cache = pf(placed, batch)
         probe.in_prefill = False
         torch.cuda.synchronize()
         out["prefill_s"] = time.perf_counter() - t0
+        out["placed_bytes"]["decode"] = placed_bytes(
+            model, {"params": dparams, "cache": cache},
+            {"tokens": toks[:, :1]}, ShapeConfig("d", T, B, "decode"), mesh,
+            drules)
         out["prefill_launches"] = dict(ops.LAUNCHES)
         out["variants"] = dict(fa.VARIANT_LAUNCHES)
         out["heads"] = list(probe.heads)
@@ -2728,6 +2734,27 @@ def mesh_lm_rank(rank: int, p) -> dict:
 
 
 MESH_JOBS = {"rm1": mesh_rm1_rank, "lm": mesh_lm_rank}
+
+
+def placed_bytes(model, tree, batch, shape, mesh, rules) -> int:
+    """A rank's local bytes of a program's arguments: the blocks it holds
+    of ``tree`` (placed DTensors) and of each ``batch`` input under the
+    model's ``input_logical`` (the block the program takes)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.params import tree_leaves
+
+    def nbytes(t):
+        t = t.to_local() if isinstance(t, DTensor) else t
+        return t.numel() * t.element_size()
+
+    logical = model.input_logical(shape)
+    with shd.use_mesh(mesh, rules):
+        return (sum(nbytes(t) for t in tree_leaves(tree) if t is not None)
+                + sum(nbytes(shd.local(v, *(logical.get(k)
+                                            or (None,) * v.dim())))
+                      for k, v in batch.items()))
 
 
 def one_device_lm(model, params, prompt, T: int, steps: int, dev,
@@ -3097,13 +3124,14 @@ def mesh_zoo(dev, card, lm) -> None:
         free_card()
 
 
-def mesh_phase(dev, card, reqs, scores, rows) -> None:
+def mesh_phase(dev, card, reqs, scores, rows) -> dict:
     """Spawns of four rank processes on the one card: smollm-135m on
     (1, 4), the 2-layer copies, then RM1 V0 on (data 2, model 2) and on the
     survivors of a failure; then qwen2-moe-a2.7b on (1, 4) alone (the
     parent's copy of its weights and the ranks' blocks hold 72 GB); then
     whisper, zamba2 and rwkv6 with their copies, one spawn each
-    (``mesh_zoo``)."""
+    (``mesh_zoo``).  Returns rank 0's results of smollm-135m at full
+    width (with its batch ``B`` and slots ``T``) for ``[dryrun]``."""
     from repro_torch.configs import rm1
     from repro_torch.models.dlrm import DLRMModel
 
@@ -3130,6 +3158,7 @@ def mesh_phase(dev, card, reqs, scores, rows) -> None:
         f"spawned, served and joined in {wall_s:.1f} s")
     for c, res in zip(cases, per_job):
         lm_check(c, res, card, lm)
+    smollm_rank0 = dict(per_job[0][0], B=cases[0]["B"], T=cases[0]["T"])
     launches = {"rm1": rm1_check(per_job[-1], reqs, scores, card)}
     del cases, jobs, per_job, c, res
     free_card()
@@ -3149,6 +3178,7 @@ def mesh_phase(dev, card, reqs, scores, rows) -> None:
             row["mesh_launches"] = {tag: [n[row["name"]] for n in per]
                                     for tag, per in lm.items()}
     log(f"[mesh] phase took {time.perf_counter() - t0:.1f} s; {card}")
+    return smollm_rank0
 
 
 # ---------------------------------------------------------- mesh-train
@@ -3930,6 +3960,95 @@ def mesh_train_phase(dev, card) -> None:
     log(f"[mesh-train] phase took {time.perf_counter() - t0:.1f} s; {card}")
 
 
+# -------------------------------------------------------------- dryrun
+#: [dryrun] (a): the archs run on both production meshes at every shape
+DRYRUN_ARCHS = ("smollm-135m", "qwen2-moe-a2.7b")
+#: cells (a) leaves out, for its 60 s: qwen2-moe's training takes 62-63 s
+#: a mesh on an H100 host's 8 cores, more than all the others together;
+#: tests/test_torch_dryrun.py holds its argument bytes
+DRYRUN_LEFT_OUT = (("qwen2-moe-a2.7b", "train_4k"),)
+
+
+def dryrun_cell(arch: str, shape: str, multi: bool):
+    """One cell of the dry run, in a worker process: (record, seconds)."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, multi)
+    return rec, time.perf_counter() - t0
+
+
+def dryrun_phase(rank0: dict, card: str) -> None:
+    """(a) the dry run of ``DRYRUN_ARCHS`` at every shape on both
+    production meshes (but ``DRYRUN_LEFT_OUT``), its cells in worker processes (it runs on fake
+    tensors: no card); (b) the dry run at ``[mesh]``'s (1, 4) smollm-135m
+    shapes held against what that phase's rank 0 placed and launched;
+    (c) ``ops.LAUNCHES`` untouched by the fake path."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import os
+
+    from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    cells = [(a, s, m) for a in DRYRUN_ARCHS for s in SHAPES
+             for m in (False, True) if (a, s) not in DRYRUN_LEFT_OUT]
+    # the training cells take longest: first
+    cells.sort(key=lambda c: SHAPES[c[1]].kind != "train")
+    workers = min(len(cells), os.cpu_count() or 1)
+    with cf.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        futures = {c: ex.submit(dryrun_cell, *c) for c in cells}
+        done = {c: f.result() for c, f in futures.items()}
+    for (arch, shape, multi), (rec, secs) in sorted(done.items()):
+        tag = f"{arch}|{shape}|{'multi' if multi else 'single'}"
+        log(dryrun.record_line(tag, rec) + f" ({secs:.1f} s)")
+        assert rec["status"] in ("ok", "skip"), rec
+        if rec["status"] == "ok":
+            assert rec["cost"]["flops"] > 0 and rec["memory"][
+                "argument_bytes"] > 0, rec
+    secs_a = time.perf_counter() - t0
+    log(f"[dryrun] (a) {len(cells)} cells of {', '.join(DRYRUN_ARCHS)} "
+        f"(left out: {DRYRUN_LEFT_OUT}) on {workers} worker processes in "
+        f"{secs_a:.1f} s; fake tensors on {dryrun.fake_device()}")
+
+    before = dict(ops.LAUNCHES)
+    B, S, T = rank0["B"], MESH_LM["smollm-135m"][1], rank0["T"]
+    pre = dryrun.run_cell(
+        "smollm-135m", "prefill", False, mesh_shape=(1, MESH_WORLD),
+        shape=ShapeConfig("prefill", S, B, "prefill"))
+    dec = dryrun.run_cell(
+        "smollm-135m", "decode", False, mesh_shape=(1, MESH_WORLD),
+        shape=ShapeConfig("decode", T, B, "decode"))
+    got = {"prefill": pre, "decode": dec}
+    want_kernels = {
+        "prefill": {k: v for k, v in rank0["prefill_launches"].items() if v},
+        "decode": {"flash_decode_partial": rank0["decode_launches"][0]}}
+    assert len(set(rank0["decode_launches"])) == 1, rank0["decode_launches"]
+    for kind, rec in got.items():
+        args = rec["memory"]["argument_bytes"]
+        assert args == rank0["placed_bytes"][kind], (
+            kind, args, rank0["placed_bytes"])
+        assert rec["kernels"] == want_kernels[kind], (kind, rec["kernels"])
+    peak = max(r["memory"]["total_per_device_bytes"] for r in got.values())
+    log(f"[dryrun] (b) smollm-135m on (1, {MESH_WORLD}), batch {B}, prompt "
+        f"{S}, {T} slots: argument bytes prefill "
+        f"{pre['memory']['argument_bytes']}, decode "
+        f"{dec['memory']['argument_bytes']}, equal to [mesh] rank 0's "
+        f"placed {rank0['placed_bytes']}; kernel calls prefill "
+        f"{pre['kernels']}, decode {dec['kernels']}, equal to its launches; "
+        f"predicted peak {peak / 1e9:.3f} GB (prefill "
+        f"{pre['memory']['total_per_device_bytes'] / 1e9:.3f}, decode "
+        f"{dec['memory']['total_per_device_bytes'] / 1e9:.3f}) against the "
+        f"rank's max_memory_allocated {rank0['peak_gb']:.3f} GB: ratio "
+        f"{peak / 1e9 / rank0['peak_gb']:.3f}; collectives a decode step "
+        f"{dec['collectives']['counts']}")
+    assert ops.LAUNCHES == before, (before, ops.LAUNCHES)
+    log(f"[dryrun] (c) ops.LAUNCHES untouched by the fake path {before}; "
+        f"the phase took {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4083,10 +4202,13 @@ def main() -> int:
     train_phase(dev, card)
 
     # --------------------------------------------------------------- mesh
-    mesh_phase(dev, card, reqs, scores, rows)
+    smollm_rank0 = mesh_phase(dev, card, reqs, scores, rows)
 
     # --------------------------------------------------------- mesh-train
     mesh_train_phase(dev, card)
+
+    # ------------------------------------------------------------- dryrun
+    dryrun_phase(smollm_rank0, card)
 
     log(f"[total] the script took {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -8,8 +8,9 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401
-    SHAPES, DLRMConfig, EncDecConfig, ModelConfig, MoEConfig, ShapeConfig,
-    SSMConfig, VLMConfig,
+    MULTI_POD, SHAPES, SINGLE_POD, DLRMConfig, EncDecConfig, MeshConfig,
+    ModelConfig, MoEConfig, ShapeConfig, SSMConfig, VLMConfig,
+    shape_applicable,
 )
 
 # arch id -> module name

@@ -8,8 +8,9 @@ paper's model shape, and ``ShapeConfig``, ``SHAPES`` and
 ``cache_specs`` size.  ``scan_layers`` and ``remat`` are kept so that a
 config compares field for field with the reference's; the port loops
 over layers in Python (``scan_layers`` is not read) and checkpoints
-each layer as ``remat`` says when it trains.  ``MeshConfig`` (the
-production meshes) waits for the dry-run (ROADMAP Queue 1 item 8d).
+each layer as ``remat`` says when it trains.  ``MeshConfig``,
+``SINGLE_POD`` and ``MULTI_POD`` are the production meshes that
+``launch.mesh.make_production_mesh`` builds and ``launch.dryrun`` costs.
 """
 from __future__ import annotations
 
@@ -169,3 +170,20 @@ def shape_applicable(model: ModelConfig,
         return False, ("SKIP(full-attention): long_500k needs "
                        "sub-quadratic attention")
     return True, ""
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))

@@ -15,9 +15,9 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import embedding_manager as em
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import embedding_bag_ref
 
@@ -64,9 +64,7 @@ def disagg_embedding_lookup(tables: torch.Tensor, idx: torch.Tensor,
     ix_loc = idx[:, shard * t_loc:(shard + 1) * t_loc].contiguous()
     pooled = pool(tables, ix_loc)                     # (B_loc, T_loc, D)
     # Fsum all-gather: only pooled vectors cross the network
-    parts = [torch.empty_like(pooled) for _ in range(n_shards)]
-    dist.all_gather(parts, pooled, group=mesh.get_group(axis))
-    return torch.cat(parts, dim=1)
+    return shd._gather(pooled, mesh, names.index(axis), dim=1)
 
 
 def greedy_table_layout(model_cfg, m: int, n_tasks: int = 1,

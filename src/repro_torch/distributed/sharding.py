@@ -66,12 +66,19 @@ psum over the ranks holding copies gives the whole
 (``train.train_loop.value_and_grad_mesh``).  The backward runs the same
 c10d calls as the forward.  With grad mode off the collectives are the
 plain calls, no autograd function in between.
+
+Tally.  Every c10d call of the port (``_reduce`` and ``_gather``, which
+``core.sharding.disagg_embedding_lookup`` calls too) adds one call
+and its moved bytes to ``COLLECTIVES`` by kind and mesh axis
+(:func:`count_collective`), the counterpart of the reference's
+collective bytes parsed from its HLO; ``reset_collectives`` zeroes it.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.distributed as dist
@@ -267,10 +274,48 @@ def tree_shardings_for_shapes(spec_tree, shape_tree):
 
 # ------------------------------------------------------------ collectives
 
+#: collective kind -> mesh axis -> [calls, moved bytes a rank] since the
+#: last :func:`reset_collectives`
+COLLECTIVES: Dict[str, Dict[str, List[int]]] = {}
 
-def _reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+
+def reset_collectives() -> None:
+    """Zero the tally of collectives (``COLLECTIVES``)."""
+    COLLECTIVES.clear()
+
+
+def moved_bytes(kind: str, result_bytes: int, group_size: int) -> int:
+    """A rank's link bytes for one collective of ``result_bytes`` over a
+    group of ``group_size`` ranks (ring algorithm), by the reference's
+    convention (``benchmarks/roofline.py`` ``_moved_bytes``): an
+    all-gather moves its per-rank payload (the result over the group),
+    an all-reduce twice its payload (a reduce-scatter and an
+    all-gather).  The port makes no other kind."""
+    if kind == "all-gather":
+        return result_bytes // group_size
+    if kind == "all-reduce":
+        return result_bytes * 2
+    raise ValueError(f"no collective of kind {kind!r} in the port")
+
+
+def count_collective(kind: str, axis: str, result_bytes: int,
+                     group_size: int) -> None:
+    """Add one ``kind`` collective over mesh ``axis`` to ``COLLECTIVES``."""
+    row = COLLECTIVES.setdefault(kind, {}).setdefault(axis, [0, 0])
+    row[0] += 1
+    row[1] += moved_bytes(kind, result_bytes, group_size)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _reduce(x: torch.Tensor, mesh: DeviceMesh, mesh_dim: int,
+            op) -> torch.Tensor:
     y = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x.clone()
-    dist.all_reduce(y, op=op, group=group)
+    dist.all_reduce(y, op=op, group=mesh.get_group(mesh_dim))
+    count_collective("all-reduce", mesh.mesh_dim_names[mesh_dim], _nbytes(y),
+                     mesh.size(mesh_dim))
     return y.to(x.dtype)
 
 
@@ -278,14 +323,17 @@ def _gather(x: torch.Tensor, mesh: DeviceMesh, mesh_dim: int,
             dim: int) -> torch.Tensor:
     """The blocks of every rank along ``mesh_dim``, concatenated on
     ``dim`` in rank order."""
-    parts = [torch.empty_like(x) for _ in range(mesh.size(mesh_dim))]
+    n = mesh.size(mesh_dim)
+    parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=mesh.get_group(mesh_dim))
+    count_collective("all-gather", mesh.mesh_dim_names[mesh_dim],
+                     _nbytes(x) * n, n)
     return torch.cat(parts, dim=dim)
 
 
 def _psum_dims(x: torch.Tensor, mesh: DeviceMesh, dims) -> torch.Tensor:
     for i in dims:
-        x = _reduce(x, mesh.get_group(i), dist.ReduceOp.SUM)
+        x = _reduce(x, mesh, i, dist.ReduceOp.SUM)
     return x
 
 
@@ -364,7 +412,7 @@ def pmax(x: torch.Tensor, entry: Entry) -> torch.Tensor:
                          "(a softmax or logsumexp shift)")
     mesh, dims = _mesh_dims(entry)
     for i in dims:
-        x = _reduce(x, mesh.get_group(i), dist.ReduceOp.MAX)
+        x = _reduce(x, mesh, i, dist.ReduceOp.MAX)
     return x
 
 

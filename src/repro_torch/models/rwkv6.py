@@ -103,6 +103,13 @@ def rwkv6_table(cfg: ModelConfig) -> dict:
 _SQUARE = ("attn_din_c", "rwkv_out_c")
 
 
+#: ``launch.dryrun``'s hook, set only there: None runs every trip of
+#: :func:`wkv_scan`; else ``SCAN_HOOK(trip, S, state0, operands)``
+#: stands for the loop, (y, final state), running ``trip(t, state,
+#: *operands)`` as it chooses
+SCAN_HOOK = None
+
+
 def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor):
     """Sequential WKV, one step a token (the reference's ``_wkv_scan``,
@@ -114,18 +121,28 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and ``w * S + kv`` as ``addcmul``s, and ``r^T (...)`` as one batched
     product over the (B*H) heads, whose r rows are laid out once per
     call so that a token's rows are a view."""
-    B, S, H, K = r.shape
-    rows = r.transpose(1, 2).contiguous()                 # (B,H,S,K)
-    ub = u[None, :, :, None]
+    S = r.shape[1]
+    operands = (r.transpose(1, 2).contiguous(),           # (B,H,S,K)
+                k, v, w, u[None, :, :, None])
+    if SCAN_HOOK is not None:
+        return SCAN_HOOK(_wkv_trip, S, state0, operands)
     St = state0
     ys = []
     for t in range(S):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]     # (B,H,K,K)
-        m = torch.addcmul(St, ub, kv)                      # S + u kv
-        ys.append(torch.bmm(rows[:, :, t].reshape(B * H, 1, K),
-                            m.reshape(B * H, K, K)).reshape(B, H, K))
-        St = torch.addcmul(kv, w[:, t, :, :, None], St)    # w S + kv
+        y, St = _wkv_trip(t, St, *operands)
+        ys.append(y)
     return torch.stack(ys, dim=1), St
+
+
+def _wkv_trip(t: int, St: torch.Tensor, rows: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, w: torch.Tensor, ub: torch.Tensor):
+    """Token ``t`` of :func:`wkv_scan`: (y (B,H,K), the next state)."""
+    B, H, _, K = rows.shape
+    kv = k[:, t, :, :, None] * v[:, t, :, None, :]         # (B,H,K,K)
+    m = torch.addcmul(St, ub, kv)                          # S + u kv
+    y = torch.bmm(rows[:, :, t].reshape(B * H, 1, K),
+                  m.reshape(B * H, K, K)).reshape(B, H, K)
+    return y, torch.addcmul(kv, w[:, t, :, :, None], St)  # w S + kv
 
 
 def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:

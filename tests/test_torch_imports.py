@@ -57,7 +57,9 @@ def test_port_imports_load_no_jax_module():
             " repro_torch.train.optimizer, repro_torch.train.checkpoint,"
             " repro_torch.distributed.sharding,"
             " repro_torch.distributed.elastic, repro_torch.launch.mesh,"
-            " repro_torch.launch.steps\n"
+            " repro_torch.launch.steps, repro_torch.launch.dryrun,"
+            " repro_torch.analysis.engine\n"
+            "import repro_torch.analysis.engine as e; e.load_rules()\n"
             "bad = sorted(m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -438,7 +438,7 @@ def parent_serving():
     def psum(x, entry):
         mesh, dims = shd._mesh_dims(entry)
         for i in dims:
-            x = shd._reduce(x, mesh.get_group(i), dist.ReduceOp.SUM)
+            x = shd._reduce(x, mesh, i, dist.ReduceOp.SUM)
         return x
 
     def all_gather(x, entry, dim):
