@@ -23,7 +23,10 @@ with a non-zero exit and no result line):
    attention causal and not, G in {1, 3}, D in {32, 64, 112, 128},
    ragged S and T, smollm-135m's and zamba2-7b's full-width prefill
    shapes (fp32 within 2e-5,
-   bf16 within two bf16 steps of each element), flash decode at the
+   bf16 within two bf16 steps of each element; bf16 at D = 112 on the
+   tensor-core kernel, padded to 128 in shared memory, three launches
+   bitwise equal, also on a rank's 8 local heads read in place from a
+   (B, S, 32, 112) tensor), flash decode at the
    split-KV kernel's edges (pos at 0, mid-cache, at the last row and
    past T, kv_offset > 0 and a slice wholly after pos, one split and the
    most splits, G from 1 to 16, D 16 to 128 and 112 (row groups with
@@ -145,7 +148,7 @@ with a non-zero exit and no result line):
    next, through ``LMServingEngine.generate``: batch 4, a 512-token
    prompt in a 1024-slot cache, 16 steps.  The counters are zeroed just
    before and read just after: zamba2 13 flash-attention launches, all
-   on the scalar kernel (head dim 112 is no wgmma width), and 13 x 16
+   on the tensor-core kernel (head dim 112 padded to 128), and 13 x 16
    flash-decode launches; rwkv6 none of any kernel.  zamba2's kernels
    are held against their plain versions at the first prefill launch
    (and fp32 copies of its inputs) and the first and last decode
@@ -187,6 +190,11 @@ with a non-zero exit and no result line):
    widths, bf16, batch 2 at the zoo's prompt shapes, each freed before
    the next: the loss finite, every gradient finite and nonzero (the
    experts' together), the same batch's loss lower after the step;
+   (f) one Adam step of rwkv6-3b (2 layers) at batch 1 x 4096 tokens,
+   ``train_4k``'s sequence: the WKV loop in nested checkpointed chunks
+   keeps the step's memory above its arguments below half of what the
+   unchunked loop's saved states would take, printed beside the dry
+   run's temp for the same cell on a 1 x 1 mesh;
 15. mesh: serving on a mesh of 4 rank processes on the one card
    (``torch.multiprocessing`` spawn, a ``file://`` store, gloo: NCCL
    refuses two ranks on one device; the parent draws each model's
@@ -232,7 +240,7 @@ with a non-zero exit and no result line):
    layers, once under head-TP and once under the FSDP rules, where the
    encoder and both decoder attentions run context parallelism; zamba2
    7; rwkv6 2): every rank's attention launches a prefill (whisper 96,
-   all wgmma; zamba2 13, scalar at head dim 112; none under FSDP + CP or
+   all wgmma; zamba2 13, wgmma at head dim 112; none under FSDP + CP or
    for rwkv6) and decode launches a step (whisper 64, the cross cache's
    at kv_offset 0; zamba2 13); the copies' greedy tokens equal to one
    device's and logits within 1e-4; the bf16 logits within ten bf16
@@ -372,6 +380,8 @@ RECURRENT_FP32_LAYERS = 7
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 40
 TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 10, 25
 TRAIN_RM1_ROWS = 10_000
+#: [train]'s rwkv6-3b step at train_4k's sequence: (layers, batch, tokens)
+TRAIN_RWKV6_LONG = (2, 1, 4096)
 TRAIN_FAMILIES = [("llama3-8b", 2), ("qwen2-moe-a2.7b", 2),
                   ("llava-next-mistral-7b", 2), ("whisper-large-v3", 2),
                   ("zamba2-7b", 7), ("rwkv6-3b", 2)]
@@ -469,11 +479,34 @@ def nmp_schedule(dtype, B, T, D, vec):
     return dict(zip(("grid", "warps_per_block", "chunks", "K"), out))
 
 
+def check_padded_attention(q, k, v, causal: bool, msg: str) -> float:
+    """A bf16 case whose head dim the tensor-core kernel pads (zamba2's
+    112): three launches, each on ``wgmma`` and within ``ATTN_TOL`` of the
+    plain version, bitwise equal to each other (an epilogue storing the
+    padded columns would race the next head's or row's CTA) -> the max
+    abs error."""
+    from repro_torch.kernels import cases, ops
+    from repro_torch.kernels import flash_attention as fa
+    want = fa.flash_attention_plain(q, k, v, causal=causal).float()
+    atol, rtol = cases.ATTN_TOL[torch.bfloat16]
+    outs = []
+    for _ in range(3):
+        before = fa.VARIANT_LAUNCHES["wgmma"]
+        outs.append(ops.flash_attention(q, k, v, causal=causal))
+        torch.cuda.synchronize()
+        assert fa.VARIANT_LAUNCHES["wgmma"] == before + 1, msg
+        torch.testing.assert_close(outs[-1].float(), want, atol=atol,
+                                   rtol=rtol, msg=msg)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:]), msg
+    return float((outs[0].float() - want).abs().max())
+
+
 def check_attention_grid(dev) -> None:
     from repro_torch.kernels import cases, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode_plain
-    n, worst = 0, 0.0
+    n, worst, padded = 0, 0.0, 0
     for (B, H, Hkv, S, T, D) in cases.ATTN_GRID:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
@@ -481,17 +514,33 @@ def check_attention_grid(dev) -> None:
                 q = cases.randn(rng, (B, H, S, D), dev, dtype)
                 k = cases.randn(rng, (B, Hkv, T, D), dev, dtype)
                 v = cases.randn(rng, (B, Hkv, T, D), dev, dtype)
+                msg = (f"flash_attention {(B, H, Hkv, S, T, D)} {dtype} "
+                       f"causal={causal}")
+                if fa.variant(dtype, D) == "wgmma" and D % 64:
+                    worst = max(worst, check_padded_attention(
+                        q, k, v, causal, msg))
+                    padded += 1
+                    n += 1
+                    continue
                 got = ops.flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 want = flash_attention_plain(q, k, v, causal=causal)
                 atol, rtol = cases.ATTN_TOL[dtype]
                 torch.testing.assert_close(
                     got.float(), want.float(), atol=atol, rtol=rtol,
-                    msg=f"flash_attention {(B, H, Hkv, S, T, D)} {dtype} "
-                        f"causal={causal}")
+                    msg=msg)
                 worst = max(worst, float((got.float() - want.float()).abs()
                                          .max()))
                 n += 1
+    # [mesh]'s zamba2 rank: 8 local heads of 32, read in place from the
+    # layers' (B, S, H, D) tensors (pointer offset 8 * 112 * 2 bytes)
+    rng = np.random.RandomState(112)
+    q, k, v = (cases.randn(rng, (4, 512, 32, 112), dev, torch.bfloat16)[
+        :, :, 8:16].transpose(1, 2) for _ in range(3))
+    assert fa.tma_strides("q", q) == [512 * 32 * 112, 112, 32 * 112]
+    worst = max(worst, check_padded_attention(
+        q, k, v, True, "flash_attention zamba2 local heads 8:16"))
+    n, padded = n + 1, padded + 1
     for (B, H, Hkv, T, D, pos, off) in cases.DECODE_GRID:
         for dtype in (torch.float32, torch.bfloat16):
             rng = np.random.RandomState(T + D + pos)
@@ -512,7 +561,9 @@ def check_attention_grid(dev) -> None:
     log(f"[kernels] {n} attention cases on the card: flash_attention "
         f"within (atol, rtol) {cases.ATTN_TOL[torch.float32]} (fp32) and "
         f"{cases.ATTN_TOL[torch.bfloat16]} (bf16) of the plain version "
-        f"(worst {worst:.3g}), flash_decode_partial within "
+        f"(worst {worst:.3g}; {padded} bf16 cases at head dim 112 on "
+        f"wgmma, padded to 128, each three launches bitwise equal, a "
+        f"rank's local heads among them), flash_decode_partial within "
         f"{cases.DECODE_TOL} on "
         f"(o, l, m); a slice wholly after pos gives m = -1e30, l = o = 0")
 
@@ -1107,8 +1158,10 @@ def time_attention(q, k, v, kw, launches, card):
     kind = fa.variant(q.dtype, D)
     row["variant"] = kind
     if kind == "wgmma":
-        # P V runs twice (P_hi, P_lo): Q K^T plus two P V products
-        row["tensor_bound_ms"] = 1.5 * flops / ops_per_s * 1e3
+        # P V runs twice (P_hi, P_lo): Q K^T plus two P V products, at
+        # the head dim padded to whole 64-column atoms (112 -> 128)
+        row["tensor_bound_ms"] = (1.5 * flops * (-(-D // 64) * 64) / D
+                                  / ops_per_s * 1e3)
         info = ptxas_info("flash_attention", f"fa_wgmma_kernelILi{D}E")
         row["registers"] = info and info.get("registers")
         row["spill_bytes"] = info and info.get("spill_bytes")
@@ -1756,7 +1809,8 @@ def zoo_model(arch, layers, dev, card, tag: str = "zoo",
     decode_s = total_s - probe.prefill_s
     attn_n, decode_n = zoo_launches(cfg, ZOO_STEPS)
     assert launches["flash_attention"] == attn_n, launches
-    # every launch on the kernel its head dim takes (zamba2's 112: scalar)
+    # every launch on the kernel its head dim takes (zamba2's 112: wgmma,
+    # padded to 128 in shared memory)
     kind = fa.variant(torch.bfloat16, cfg.resolved_head_dim)
     assert variants == {k: attn_n if k == kind else 0 for k in variants}, \
         variants
@@ -2306,6 +2360,107 @@ def train_family(arch, layers, dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+def train_rwkv6_long(dev, card) -> None:
+    """One Adam step of rwkv6-3b at its published widths, depth cut to
+    ``TRAIN_RWKV6_LONG``'s layers, bf16, at its batch x tokens
+    (``train_4k``'s sequence), as ``make_train_step`` runs it: the WKV
+    trips run in nested checkpointed chunks (``cfg.ssm.chunk`` tokens,
+    sub-chunks of 16), so the layers' backward, where the loop's saved
+    states live, peaks above what the backward held on reaching them
+    (the CE's and the head's gradients, a hook on the final hidden
+    states marks the point) by less than half of what the unchunked
+    loop's saved states alone would take for one layer's backward (three
+    (B, H, K, K) fp32 tensors a token: k v^T, S + u k v^T and the next
+    state).  Prints the loss and gradients' peak and the whole step's,
+    the update included, above the step's arguments, beside the dry run's
+    temp for the same cell on a 1 x 1 mesh (``launch.dryrun.run_cell``).
+    """
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.models.layers import pick_block
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import value_and_grad
+
+    layers, B, S = TRAIN_RWKV6_LONG
+    full = configs.get_config("rwkv6-3b")
+    cfg = full.replace(num_layers=layers)
+    model = registry.build(cfg)
+    params = model.init(0, device=dev)
+    opt = opt_mod.OptConfig()
+    state = opt_mod.init_state(opt, params)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    del toks
+    marks = {}
+
+    def at_layers(g):
+        """The backward reaches the layers: its peak so far is the CE's
+        and the head's; the layers' is counted from here."""
+        marks["head_peak"] = torch.cuda.max_memory_allocated()
+        marks["at"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def forward(*a, **kw):
+        x, states = type(model).forward(model, *a, **kw)
+        if x.requires_grad:
+            x.register_hook(at_layers)
+        return x, states
+
+    model.forward = forward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    layers_bytes = torch.cuda.max_memory_allocated() - marks["at"]
+    grad_bytes = max(marks["head_peak"],
+                     torch.cuda.max_memory_allocated()) - held
+    torch.cuda.reset_peak_memory_stats()
+    params, state = opt_mod.apply_updates(opt, params, grads, state)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_bytes = max(grad_bytes + held, torch.cuda.max_memory_allocated()
+                     ) - held
+    del grads
+    assert sum(ops.LAUNCHES.values()) == 0, ops.LAUNCHES
+    assert math.isfinite(loss), loss
+    H, K = cfg.num_heads, cfg.resolved_head_dim
+    unchunked = 3 * S * B * H * K * K * 4
+    t1 = time.perf_counter()
+    rec = dryrun.run_cell("rwkv6-3b", "train", False, mesh_shape=(1, 1),
+                          shape=ShapeConfig("train", S, B, "train"), cfg=cfg)
+    dry_s = time.perf_counter() - t1
+    pred = rec["memory"]["temp_bytes"]
+    Q = pick_block(S, cfg.ssm.chunk)
+    assert layers_bytes < unchunked / 2, (layers_bytes, unchunked)
+    log(f"[train] rwkv6-3b (ssm) at its published widths, cut: num_layers "
+        f"{full.num_layers} -> {layers}, bf16, batch {B} x {S} tokens, one "
+        f"Adam step (loss {loss:.4f}) in {step_s:.2f} s: the WKV loop in "
+        f"chunks of {Q} tokens and sub-chunks of {pick_block(Q, 16)}, each "
+        f"checkpointed; the layers' backward peaks "
+        f"{layers_bytes / 1e9:.3f} GB above the {marks['at'] / 1e9:.3f} GB "
+        f"held on reaching them, below half of the {unchunked / 1e9:.3f} "
+        f"GB the unchunked loop's saved states would take (3 (B, H, K, K) "
+        f"fp32 tensors a token, one layer's); above the step's "
+        f"{held / 1e9:.3f} GB of arguments the loss and its gradients peak "
+        f"{grad_bytes / 1e9:.3f} GB (the CE's and the head's "
+        f"{(marks['head_peak'] - held) / 1e9:.3f} GB), the whole step "
+        f"{step_bytes / 1e9:.3f} GB (the dry run's temp for the same cell "
+        f"on a 1 x 1 mesh {pred / 1e9:.3f} GB, traced in {dry_s:.1f} s on "
+        f"the host); kernel launches 0; {card}")
+    del params, state, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_phase(dev, card) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2318,6 +2473,7 @@ def train_phase(dev, card) -> None:
     train_rm1(dev, card)
     for arch, layers in TRAIN_FAMILIES:
         train_family(arch, layers, dev, card)
+    train_rwkv6_long(dev, card)
     log(f"[train] phase took {time.perf_counter() - t0:.1f} s; {card}")
 
 

@@ -80,7 +80,7 @@ ATTN_GRID = [  # B, H, Hkv, S, T, D
     (2, 20, 20, 64, 1500, 64),        # whisper's cross-attention, S != T
     (1, 48, 8, 300, 300, 128),        # qwen2.5-14b: G = 6, padded heads
     (1, 32, 8, 1088, 1088, 128),      # llava: 576 patches + 512 tokens
-    # head dim 112 (zamba2-7b's shared block): the scalar kernel in bf16
+    # head dim 112 (zamba2-7b's shared block): wgmma in bf16, padded to 128
     (4, 32, 32, 512, 512, 112),       # zamba2-7b's full-width prefill
     (2, 3, 3, 77, 77, 112),           # G = 1, ragged S = T
     (1, 4, 4, 130, 200, 112),         # G = 1, ragged S < T

@@ -24,8 +24,9 @@
 // Two hand-written kernels; the wrapper picks one by dtype and head dim
 // before the launch (never as a fallback after a failed one):
 //
-// * fa_forward_wgmma, for bf16 with D in {64, 128} (the prefill of every
-//   dense LM config): the tensor-core kernel below (namespace tc).
+// * fa_forward_wgmma, for bf16 with D in {64, 112, 128} (the prefill of
+//   every dense LM config and zamba2's shared block): the tensor-core
+//   kernel below (namespace tc).
 //   - Roles.  A CTA of three warpgroups: warpgroups 0 and 1 consume 64 q
 //     rows each of a 128-row q tile; one thread of warpgroup 2 produces.
 //     setmaxnreg hands the producer's registers (down to 24) to the
@@ -46,6 +47,15 @@
 //     two boxes per tile.  A box that reaches past S or T (or past a head:
 //     each axis is bounded on its own) is zero-filled, and its mbarrier
 //     still expects the whole box's bytes.
+//   - D = 112 (zamba2-7b) runs as D = 128 in shared memory and in the
+//     products (padded<D>): the maps keep the true 112 as their dim 0, so
+//     the second box reads columns 64-111 and TMA zero-fills 112-127 (a
+//     dim 0 of 128 would read the next head's first 16 columns, since the
+//     layers hand in (B, S, H, D) views).  Q K^T then adds exact zeros
+//     over its last k16 step, P V gives zeros in columns 112-127, and the
+//     epilogue stores the columns below D only: o's rows run on into the
+//     next head's, which another CTA writes.  The registers are D = 128's
+//     (O is 64 fp32 a thread); the tensor work is 8/7 of the unpadded.
 //   - S = Q K^T: wgmma m64n64k16, both operands K-major in shared memory
 //     under the same 128-byte swizzle as the TMA map; a k16 step advances
 //     the descriptor's start address by 32 bytes inside a 1024-byte atom.
@@ -81,9 +91,8 @@
 //     through o's strides; rows past S are not written.
 // * fa_forward, the scalar kernel (namespace below): fp32 at any D, which
 //   the fp32 copy of a model and its 2e-5 tolerance need, and bf16 with D
-//   in {16, 32, 112}, which wgmma's 64-row tiles and 128-byte (64-column)
-//   swizzle atoms do not fit (112 is not a multiple of 64: zamba2's
-//   shared attention block runs here).
+//   in {16, 32} (the reduced configs), too narrow for wgmma's 128-byte
+//   (64-column) swizzle atoms to be worth padding.
 //   One CTA of 256 threads per (q tile of 64 rows, head, batch) stages Q,
 //   K and V in shared memory as fp32, computes the 64 x 64 score tile with
 //   scalar FMAs (each thread a 4 x 4 block, read as float4 along D),
@@ -367,12 +376,19 @@ constexpr int kThreads = 384;   // warpgroups 0, 1 consume; 2 produces
 constexpr int kAtomBytes = 128; // one swizzle atom row: 64 bf16
 constexpr int kBN = 64;         // keys per tile (see the note at the top)
 
+// The head dim in shared memory and in the products: D rounded up to whole
+// 64-column swizzle atoms (112 -> 128; the TMA loads zero-fill the rest).
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + 63) / 64 * 64;
+}
+
 // Bytes of shared memory: Q, the K and V rings, the barriers, and slack to
 // align the tiles to the 1024-byte swizzle period.
 template <int D>
 struct Layout {
-  static constexpr int kQ = kBM * D * 2;
-  static constexpr int kKV = kBN * D * 2;
+  static constexpr int kQ = kBM * padded<D>() * 2;
+  static constexpr int kKV = kBN * padded<D>() * 2;
   static constexpr int kK = kQ;                       // K ring offset
   static constexpr int kV = kK + kStages * kKV;       // V ring offset
   static constexpr int kBar = kV + kStages * kKV;     // barriers offset
@@ -636,12 +652,13 @@ __device__ __forceinline__ void split_p(const float (&p)[kBN / 2],
 }
 
 // S = Q K^T for one warpgroup's 64 rows (q_rows) and one key tile, in
-// D / 16 k16 steps; both operands K-major under the 128-byte swizzle.
+// padded<D>() / 16 k16 steps (the zero-filled columns past D add exact
+// zeros); both operands K-major under the 128-byte swizzle.
 template <int D>
 __device__ __forceinline__ void issue_s(float (&s)[kBN / 2], uint32_t q_rows,
                                         uint32_t k_tile) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < padded<D>() / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;        // 16 columns of the atom
     wgmma_ss_n64(s, sw128_desc(q_rows + (kk / 4) * kBM * kAtomBytes + off, 16),
                  sw128_desc(k_tile + (kk / 4) * kBN * kAtomBytes + off, 16),
@@ -649,22 +666,25 @@ __device__ __forceinline__ void issue_s(float (&s)[kBN / 2], uint32_t q_rows,
   }
 }
 
-// O += P_hi V + P_lo V over one key tile, in kBN / 16 k16 steps each; V is
-// MN-major, its 64-column atoms kBN * 128 bytes apart.
+// O += P_hi V + P_lo V over one key tile, in kBN / 16 k16 steps each, over
+// padded<D>() columns (those past D come out zero); V is MN-major, its
+// 64-column atoms kBN * 128 bytes apart.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+__device__ __forceinline__ void issue_pv(float (&acc)[padded<D>() / 2],
                                          const uint32_t (&hi)[kBN / 4],
                                          const uint32_t (&lo)[kBN / 4],
                                          uint32_t v_tile) {
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
-    wgmma_rs<D>(acc, hi + 4 * kk,
-                sw128_desc(v_tile + kk * 16 * kAtomBytes, kBN * kAtomBytes));
+    wgmma_rs<padded<D>()>(
+        acc, hi + 4 * kk,
+        sw128_desc(v_tile + kk * 16 * kAtomBytes, kBN * kAtomBytes));
   }
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
-    wgmma_rs<D>(acc, lo + 4 * kk,
-                sw128_desc(v_tile + kk * 16 * kAtomBytes, kBN * kAtomBytes));
+    wgmma_rs<padded<D>()>(
+        acc, lo + 4 * kk,
+        sw128_desc(v_tile + kk * 16 * kAtomBytes, kBN * kAtomBytes));
   }
 }
 
@@ -711,9 +731,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                     __nv_bfloat16* __restrict__ o, Strides os, int B,
                     int H, int Hkv, int S, int Tk, int causal,
                     float scale_log2) {
-  static_assert(D == 64 || D == 128, "the tensor-core kernel takes D 64, 128");
+  static_assert(D == 64 || D == 112 || D == 128,
+                "the tensor-core kernel takes D 64, 112, 128");
   using L = Layout<D>;
-  constexpr int kChunks = D / 64;              // 64-column swizzle atoms
+  constexpr int kDp = padded<D>();             // columns in shared memory
+  constexpr int kChunks = kDp / 64;            // 64-column swizzle atoms
   extern __shared__ uint8_t smem_raw[];
   // Tiles start on the 1024-byte swizzle period.
   const uint32_t raw = smem_addr(smem_raw);
@@ -783,7 +805,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t q_rows = sQ + wg * 64 * kAtomBytes;
     auto k_tile = [&](int n) { return sK + (n % kStages) * L::kKV; };
     auto v_tile = [&](int n) { return sV + (n % kStages) * L::kKV; };
-    float acc[D / 2], s[kBN / 2], m[2], l[2], corr[2];
+    float acc[kDp / 2], s[kBN / 2], m[2], l[2], corr[2];
     uint32_t p_hi[kBN / 4], p_lo[kBN / 4];
 
     int n = 0;                                 // key tiles consumed so far
@@ -802,7 +824,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           causal ? min(nt, (min(Tk, tile.q0 + 64 * (wg + 1)) + kBN - 1) / kBN)
                  : nt;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < kDp / 2; ++i) acc[i] = 0.f;
       m[0] = m[1] = kNegInf;
       l[0] = l[1] = 0.f;
 
@@ -837,7 +859,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         hold(p_lo);
         if (lane == 0) mbar_arrive(empty((n + j - 1) % kStages));
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+        for (int i = 0; i < kDp / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
         split_p(s, p_hi, p_lo);
       }
       mbar_wait(full_v((n + nw - 1) % kStages),   // the last burst: P V
@@ -861,7 +883,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // Epilogue: the quad's partial sums, o = acc / max(l, 1e-37) (as a
       // product with the reciprocal, one fp32 rounding apart) rounded once
-      // to bf16, stored through o's strides; rows past S are not written.
+      // to bf16, stored through o's strides; rows past S and the padded
+      // columns past D are not written (o's row may run on into the next
+      // head's, which another CTA writes).
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -870,7 +894,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __nv_bfloat16* op = o + tile.b * os.b + tile.h * os.h;
 #pragma unroll
-      for (int g = 0; g < D / 8; ++g) {
+      for (int g = 0; g < D / 8; ++g) {   // 8-column groups below D
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int row = row0 + 8 * i;
@@ -1017,9 +1041,9 @@ int fa_forward(const void* q, const void* k, const void* v, void* o,
 // The tensor-core kernel: q, o (B, H, S, D) and k, v (B, Hkv, T, D), all
 // bf16, with the given element strides of their first three axes (q's,
 // k's, v's, then o's, each batch, head, row) and a unit stride along D,
-// on `device`.  D is 64 or 128 and H a multiple of Hkv.  TMA needs 16-byte
-// aligned q, k, v and byte strides that are multiples of 16; a map it
-// refuses returns cudaErrorInvalidValue.  Returns the cudaError_t.
+// on `device`.  D is 64, 112 or 128 and H a multiple of Hkv.  TMA needs
+// 16-byte aligned q, k, v and byte strides that are multiples of 16; a map
+// it refuses returns cudaErrorInvalidValue.  Returns the cudaError_t.
 int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
                      int B, int H, int Hkv, int S, int T, int D,
                      const long long* strides, int causal, float scale,
@@ -1037,6 +1061,10 @@ int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
       err = tc::launch<64>(q, k, v, o, strides, B, H, Hkv, S, T, causal,
                            scale, s);
       break;
+    case 112:   // zamba2's shared attention block, padded to 128
+      err = tc::launch<112>(q, k, v, o, strides, B, H, Hkv, S, T, causal,
+                            scale, s);
+      break;
     case 128:
       err = tc::launch<128>(q, k, v, o, strides, B, H, Hkv, S, T, causal,
                             scale, s);
@@ -1050,6 +1078,7 @@ int fa_forward_wgmma(const void* q, const void* k, const void* v, void* o,
 // Dynamic shared memory per CTA of the tensor-core kernel at head dim D.
 int fa_wgmma_smem_bytes(int D) {
   return D == 64    ? tc::Layout<64>::kBytes
+         : D == 112 ? tc::Layout<112>::kBytes
          : D == 128 ? tc::Layout<128>::kBytes
                     : 0;
 }

@@ -32,13 +32,14 @@ dim, before the launch:
     operands in place through 4-D maps over their own strides, so each
     pointer must be 16-byte aligned and each stride a multiple of 8
     elements; :func:`flash_attention` raises on any other view and never
-    copies.
-``"scalar"`` (``fa_forward``), fp32, and bf16 with D in {16, 32, 112}
+    copies.  zamba2's D = 112 runs padded to 128 in shared memory only:
+    the TMA maps keep the true 112, zero-fill columns 112-127, and the
+    kernel stores the columns below D alone.
+``"scalar"`` (``fa_forward``), fp32, and bf16 with D in {16, 32}
     One CTA per (64-row q tile, head, batch), K/V tiles staged in shared
     memory as fp32, scalar fp32 FMAs: exact to fp32 rounding, which the
-    fp32 copy of a model and its 2e-5 tolerance need; wgmma's 64-column
-    swizzled rows do not fit D of 16 or 32, nor zamba2's 112 (not a
-    multiple of 64), whose bf16 prefill runs here.
+    fp32 copy of a model and its 2e-5 tolerance need; the reduced
+    configs' bf16 D of 16 and 32 run here too.
 
 The kernels pick their own tiles, so the ``q_block`` and ``kv_block``
 arguments shape only the plain version's blocking.  Each operand may be
@@ -68,8 +69,8 @@ _ENTRIES = {"fa_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                ctypes.c_void_p],
             "fa_wgmma_smem_bytes": [ctypes.c_int]}
-#: head dims the tensor-core kernel takes (bf16 only)
-WGMMA_HEAD_DIMS = (64, 128)
+#: head dims the tensor-core kernel takes (bf16 only; 112 padded to 128)
+WGMMA_HEAD_DIMS = (64, 112, 128)
 #: kernel variant -> launches since the last ``ops.reset_launches``
 VARIANT_LAUNCHES = {"wgmma": 0, "scalar": 0}
 

@@ -38,10 +38,12 @@ The record has the reference's keys and file names:
 ``hlo_scaled`` (the port's loops run every trip, so ``cost`` is already
 the loop-scaled total, but for the cells in ``loop_scaled``) and
 ``cost.transcendentals``.  rwkv6's ``wkv_scan`` is a Python loop of four
-ops a token; its cells run the loop's first trip and scale that trip's
-cost by the trip count (``models.rwkv6.SCAN_HOOK``, a hook that only
-the dry run sets), as the reference's ``hlo_cost_scaled`` scales a while
-body, and the record says so in ``loop_scaled``.
+ops a token, which a train step runs in nested checkpointed chunks and
+sub-chunks; its cells run each loop's first two bodies (trips, blocks)
+and scale the second's cost by the body count (``models.rwkv6.SCAN_HOOK``
+and ``BLOCK_HOOK``, hooks that only the dry run sets), as the
+reference's ``hlo_cost_scaled`` scales a while body, and the record says
+so in ``loop_scaled``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
@@ -237,65 +239,84 @@ def _collectives() -> Dict[str, Any]:
 
 
 class _Standin(torch.autograd.Function):
-    """A loop's ``S`` trip outputs from the trips that ran (``ys``) and
-    one allocation for the others.  Its backward gives each ``y`` its
-    slice of the gradient and every operand of the loop a gradient
-    (unset: no traffic), as the trips that did not run would: without it
-    autograd would prune the backward of whatever feeds the loop's state
-    alone (rwkv6's decay ``w``)."""
+    """A loop's output over ``count`` bodies from the ``n`` bodies that
+    ran (``ys``, each with the loop's token axis at dim 1) and one
+    allocation for the others.  Its backward gives each ``y`` its slice
+    of the gradient and each of ``tensors`` (the operands of the bodies
+    that did not run) a gradient (unset: no traffic), as those bodies
+    would: without it autograd would prune the backward of whatever
+    feeds the loop's state alone (rwkv6's decay ``w``)."""
 
     @staticmethod
-    def forward(S, n, *tensors):
+    def forward(count, n, *tensors):
         ys = tensors[:n]
-        rest = ys[0].new_empty((S - n,) + tuple(ys[0].shape)).movedim(0, 1)
-        return torch.cat([y[:, None] for y in ys] + [rest], dim=1)
+        shape = list(ys[0].shape)
+        shape[1] *= count - n
+        return torch.cat(list(ys) + [ys[0].new_empty(shape)], dim=1)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.n = inputs[1]
+        ctx.sizes = [t.shape[1] for t in inputs[2:2 + ctx.n]]
         ctx.shapes = [t.shape for t in inputs[2 + ctx.n:]]
 
     @staticmethod
     def backward(ctx, g):
+        ends = [sum(ctx.sizes[:i]) for i in range(ctx.n + 1)]
         grads = [torch.empty(s, dtype=g.dtype, device=g.device)
                  if need else None for s, need in
                  zip(ctx.shapes, ctx.needs_input_grad[2 + ctx.n:])]
-        return (None, None, *(g[:, i] for i in range(ctx.n)), *grads)
+        return (None, None,
+                *(g[:, ends[i]:ends[i + 1]] for i in range(ctx.n)), *grads)
 
 
-def _scaled_scan(cost: _Cost, flops: FlopCounterMode, extra: List[int]):
-    """``rwkv6.SCAN_HOOK`` for the dry run: the loop's first two trips
-    run, and the second's cost stands for the other ``S - 2`` trips'
-    (a later trip's state needs a gradient, the first's does not).
+def _scaled_loops(cost: _Cost, flops: FlopCounterMode, extra: List[int]):
+    """``rwkv6.SCAN_HOOK`` and ``rwkv6.BLOCK_HOOK`` for the dry run: a
+    loop's first two bodies run (trips, or checkpointed blocks of
+    trips), and the second's cost stands for the other ``n - 2`` bodies'
+    (a later body's state needs a gradient, the first's does not).
 
-    - Forward: the trip's flops and bytes, times ``S - 2``, go to
-      ``extra`` and ``cost``; one allocation of the other trips' outputs
-      stands for them (the loop keeps every trip's output to the end).
-    - Under autograd: the storage the second trip left alive (what a
-      trip's graph keeps, its state saved by the next trip's) is
-      allocated ``S - 2`` times more, held by the output's graph node, so
-      it lives as long as the real graph's would; and, outside a
-      backward pass (a checkpoint's recompute runs inside one), the
-      backward of one such trip, run apart on detached copies of its
-      operands, is costed and added ``S - 2`` times (the real backward
-      runs the two trips'), with the adds that accumulate each trip's
-      gradient of an operand.  A train cell's bytes are an estimate (4-5%
-      over the full loop's at 64 and 128 tokens); its flops and memory
-      equal the full loop's.
+    - Forward: the body's flops and bytes, times ``n - 2``, go to
+      ``extra`` and ``cost``; one allocation of the other bodies' outputs
+      stands for them (the loop keeps every body's output to the end).
+    - Under autograd: the storage the second body left alive (what a
+      trip's graph keeps, its state saved by the next trip's; a block's
+      checkpoint keeps its input state) is allocated ``n - 2`` times
+      more, held by the output's graph node, so it lives as long as the
+      real graph's would; and, outside a backward pass (a checkpoint's
+      recompute runs inside one), the backward of one such body, run
+      apart on detached copies of its operands, is costed and added
+      ``n - 2`` times (the real backward runs the two bodies'), with,
+      for trips, the adds that accumulate each trip's gradient of an
+      operand (a block's gradients of its operand blocks are joined by
+      the split's backward, which runs in full).  Nested loops nest the
+      hook: a block's cost, its recomputation's and its backward's
+      include its inner loops' scaled costs.  A train cell's bytes are
+      an estimate (within 6% of the full loops' at 64 to 192 tokens);
+      its flops and memory equal the full loops'.
     """
+    #: a body's backward cost by its loop's shapes: the same body at the
+    #: same shapes costs the same, so each is run apart once
+    memo: Dict[Any, Any] = {}
+
     def cost_now():
         return flops.get_total_flops() + extra[0], cost.bytes
 
-    def backward_cost(trip, ins):
-        """(flops, bytes) of one later trip's backward, run apart; the
-        run's own cost and peak are taken back out."""
+    def backward_cost(body, ins, level):
+        """(flops, bytes) of one later body's backward, run apart (once
+        for each ``level`` and shapes); the run's own cost and peak are
+        taken back out."""
+        key = (level, tuple((tuple(t.shape), t.dtype, t.requires_grad)
+                            for t in ins))
+        if key in memo:
+            return memo[key]
         peak = cost.peak
         with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
                 lambda t: t, lambda t: t):
             ins = [t.detach().requires_grad_(i == 0 or t.requires_grad)
                    for i, t in enumerate(ins)]
             c0 = cost_now()
-            y, st = trip(1, *ins)
+            y, st = body(*ins)
             c1 = cost_now()
             need = [t for t in ins if t.requires_grad]
             torch.autograd.grad((y, st), need, (torch.empty_like(y),
@@ -306,49 +327,74 @@ def _scaled_scan(cost: _Cost, flops: FlopCounterMode, extra: List[int]):
         extra[0] -= c2[0] - c0[0]
         cost.bytes -= c2[1] - c0[1]
         cost.peak = peak
-        return c2[0] - c1[0], c2[1] - c1[1]
+        memo[key] = c2[0] - c1[0], c2[1] - c1[1]
+        return memo[key]
 
-    def scan(trip, S: int, state0: torch.Tensor, operands):
-        if S < 3:
+    def scaled(body, n: int, state0: torch.Tensor, operands, skipped,
+               token_dim: bool):
+        """The loop of ``n`` bodies, ``body(i, state, *operands(i))`` the
+        i-th; ``skipped``: the tensors that the bodies that do not run
+        read; ``token_dim``: a body's y lacks the token axis (a
+        trip's)."""
+        def run(i, st):
+            return body(i, st, *operands(i))
+
+        if n < 3:
             ys, st = [], state0
-            for t in range(S):
-                y, st = trip(t, st, *operands)
+            for i in range(n):
+                y, st = run(i, st)
                 ys.append(y)
-            return torch.stack(ys, dim=1), st
+            return (torch.stack(ys, dim=1) if token_dim
+                    else torch.cat(ys, dim=1)), st
         calls = (repr(shd.COLLECTIVES), dict(ops.FAKE_LAUNCHES))
-        y0, st0 = trip(0, state0, *operands)
+        y0, st0 = run(0, state0)
         c0, live0 = cost_now(), cost.cur
-        y1, st = trip(1, st0, *operands)
+        y1, st = run(1, st0)
         del st0
         c1 = cost_now()
         kept = cost.cur - live0 - y1.untyped_storage().nbytes()
         if (repr(shd.COLLECTIVES), ops.FAKE_LAUNCHES) != calls:
-            raise RuntimeError("a scaled loop trip ran a collective or a "
+            raise RuntimeError("a scaled loop body ran a collective or a "
                                "kernel: its count cannot be scaled")
-        extra[0] += (S - 2) * (c1[0] - c0[0])
-        cost.bytes += (S - 2) * (c1[1] - c0[1])
+        extra[0] += (n - 2) * (c1[0] - c0[0])
+        cost.bytes += (n - 2) * (c1[1] - c0[1])
         grad = torch.is_grad_enabled() and any(
-            t.requires_grad for t in (state0, *operands))
+            t.requires_grad for t in (state0, *operands(1)))
         if grad and torch._C._current_graph_task_id() == -1:
-            bf, bb = backward_cost(trip, (st, *operands))
-            extra[0] += (S - 2) * bf
-            # autograd adds each trip's gradient of an operand into its
-            # buffer (two reads, a write): S - 1 adds, of which the two
-            # trips and the stand-in's gradient make two
-            bb += 3 * sum(_nbytes(t) for t in operands if t.requires_grad)
-            cost.bytes += (S - 2) * bb - 3 * sum(
-                _nbytes(t) for t in operands if t.requires_grad)
-        out = _Standin.apply(S, 2, y0, y1, *operands)
+            bf, bb = backward_cost(lambda *ins: body(1, *ins),
+                                   (st, *operands(1)), (token_dim, n))
+            extra[0] += (n - 2) * bf
+            if token_dim:
+                # autograd adds each trip's gradient of an operand into
+                # its buffer (two reads, a write): n - 1 adds, of which
+                # the two trips and the stand-in's gradient make two
+                added = 3 * sum(_nbytes(t) for t in operands(1)
+                                if t.requires_grad)
+                bb += added
+                cost.bytes -= added
+            cost.bytes += (n - 2) * bb
+        if token_dim:
+            y0, y1 = y0[:, None], y1[:, None]
+        out = _Standin.apply(n, 2, y0, y1, *skipped)
         if grad and kept > 0:
             out.grad_fn.metadata["saved"] = y0.new_empty(
-                ((S - 2) * kept,), dtype=torch.uint8)
+                ((n - 2) * kept,), dtype=torch.uint8)
         return out, st
-    return scan
+
+    def scan(trip, S: int, state0: torch.Tensor, operands):
+        return scaled(trip, S, state0, lambda t: operands, operands, True)
+
+    def blocks(body, state0: torch.Tensor, parts):
+        return scaled(lambda i, st, *block: body(st, *block), len(parts),
+                      state0, lambda i: parts[i],
+                      [t for part in parts[2:] for t in part], False)
+    return scan, blocks
 
 
 def _trace(fn, args, scale_scan: bool = False) -> Dict[str, Any]:
     """Run ``fn(*args)`` (fake arguments) under the cost modes;
-    ``scale_scan`` runs rwkv6's ``wkv_scan`` as :func:`_scaled_scan`."""
+    ``scale_scan`` runs rwkv6's ``wkv_scan`` loops as
+    :func:`_scaled_loops` does."""
     arg_tensors = _tensors(args)
     storages = [t.untyped_storage() for t in arg_tensors]
     cost = _Cost(storages)
@@ -356,14 +402,14 @@ def _trace(fn, args, scale_scan: bool = False) -> Dict[str, Any]:
     extra = [0]
     shd.reset_collectives()
     ops.reset_fake()
-    old_hook = rwkv6.SCAN_HOOK
+    old_hooks = rwkv6.SCAN_HOOK, rwkv6.BLOCK_HOOK
     if scale_scan:
-        rwkv6.SCAN_HOOK = _scaled_scan(cost, flops, extra)
+        rwkv6.SCAN_HOOK, rwkv6.BLOCK_HOOK = _scaled_loops(cost, flops, extra)
     try:
         with flops, cost:
             out = fn(*args)
     finally:
-        rwkv6.SCAN_HOOK = old_hook
+        rwkv6.SCAN_HOOK, rwkv6.BLOCK_HOOK = old_hooks
     outs, seen, alias, new_out = _tensors(out), set(), 0, 0
     arg_ids = {id(s) for s in storages}
     for t in outs:

@@ -10,8 +10,11 @@ The WKV scan.  The reference's ``wkv_chunked`` nests a scan over chunks
 and one over sub-chunks around ``_wkv_scan``, only to bound autodiff
 memory: its sums still run token by token, in ``_wkv_scan``'s order.  So
 the port's serving path is one loop over the tokens (:func:`wkv_scan`),
-built on ``_wkv_scan``'s step; the chunk size changes nothing.  It is
-plain PyTorch on the device: the reference has no Pallas kernel here.
+built on ``_wkv_scan``'s step; the chunk size changes nothing.  Training
+runs the same trips in the same order inside nested checkpoints
+(``wkv_scan(..., chunk=)``), which changes what autograd keeps and
+nothing else.  It is plain PyTorch on the device: the reference has no
+Pallas kernel here.
 Decode carries the (S, prev-x) state, O(1) per token.
 
 The parameter tree is the reference's (per-layer leaves stacked on a
@@ -28,10 +31,15 @@ A forward returns new state tensors and leaves the ones it was given as
 they are; a decode step makes no host sync.
 
 ``loss`` (mean CE, unchunked as in the reference) checkpoints each layer
-as ``cfg.remat`` says.  Under autograd each token of ``wkv_scan`` keeps
-a few (B, H, K, K) fp32 tensors, about 2 MB a sequence at rwkv6-3b's
-widths; the per-layer checkpoint keeps one layer's loop at a time, as
-the reference's nested checkpointed scans bound theirs.
+as ``cfg.remat`` says, and inside a layer the WKV trips run as the
+reference's ``wkv_chunked`` runs them under autograd: in chunks of
+``pick_block(S, cfg.ssm.chunk)`` tokens and sub-chunks of
+``pick_block(Q, 16)``, each under a checkpoint.  A trip keeps a few
+(B, H, K, K) fp32 tensors for its backward (about 2 MB a sequence at
+rwkv6-3b's widths); the checkpoints keep one state per chunk, and during
+the backward one chunk's sub-chunk states and one sub-chunk's trips, so
+a layer's backward holds (chunks + sub-chunks + trips of a sub-chunk)
+states, not S of them.
 
 On a mesh (``distributed.sharding.use_mesh`` with a DeviceMesh and
 ``registry.make_rules``) each rank computes on its batch block.  The
@@ -47,10 +55,12 @@ says.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -103,15 +113,28 @@ def rwkv6_table(cfg: ModelConfig) -> dict:
 _SQUARE = ("attn_din_c", "rwkv_out_c")
 
 
-#: ``launch.dryrun``'s hook, set only there: None runs every trip of
-#: :func:`wkv_scan`; else ``SCAN_HOOK(trip, S, state0, operands)``
-#: stands for the loop, (y, final state), running ``trip(t, state,
-#: *operands)`` as it chooses
+#: the reference's sub-chunk length (``wkv_chunked``'s ``sub``)
+SUB_CHUNK = 16
+
+#: ``launch.dryrun``'s hooks, set only there.  ``SCAN_HOOK``: None runs
+#: every trip of a trip loop; else ``SCAN_HOOK(trip, n, state0,
+#: operands)`` stands for the loop of ``n`` trips, (y, final state),
+#: running ``trip(t, state, *operands)`` as it chooses.  ``BLOCK_HOOK``:
+#: None runs every block of a checkpointed level; else
+#: ``BLOCK_HOOK(body, state0, blocks)`` stands for the loop over
+#: ``blocks`` (each a tuple of operand blocks), (y, final state),
+#: running ``body(state, *block)`` as it chooses.
 SCAN_HOOK = None
+BLOCK_HOOK = None
+
+#: the token axis of each of the loop's operands: r's rows (B, H, S, K),
+#: then k, v and w (B, S, H, K)
+_TOKEN_AXES = (2, 1, 1, 1)
 
 
 def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor):
+             w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+             chunk: Optional[int] = None):
     """Sequential WKV, one step a token (the reference's ``_wkv_scan``,
     which ``wkv_chunked`` runs in the same order). r,k,v,w: (B,S,H,K)
     fp32; u: (H,K); state: (B,H,K,K). Returns (y: (B,S,H,K), final
@@ -120,23 +143,75 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A step is four launches: the outer product k v^T, ``S + u * kv``
     and ``w * S + kv`` as ``addcmul``s, and ``r^T (...)`` as one batched
     product over the (B*H) heads, whose r rows are laid out once per
-    call so that a token's rows are a view."""
-    S = r.shape[1]
-    operands = (r.transpose(1, 2).contiguous(),           # (B,H,S,K)
-                k, v, w, u[None, :, :, None])
+    call so that a token's rows are a view.
+
+    With ``chunk`` the same trips run in the same order in chunks of
+    ``pick_block(S, chunk)`` tokens and sub-chunks of
+    ``pick_block(Q, SUB_CHUNK)``, each under a non-reentrant checkpoint
+    nested as the reference's ``jax.checkpoint``s are: autograd keeps
+    one state per chunk, and recomputes a chunk's sub-chunk states and
+    a sub-chunk's trips in the backward.  The values are the loop's.
+    Each level cuts its operands into views (``split``), so a trip's
+    gradient of its token is a sub-chunk's slice, joined by the splits'
+    backward without a sum; only u's gradient, which every trip adds
+    to, may be summed in another grouping."""
+    xs = (r.transpose(1, 2).contiguous(),               # (B,H,S,K)
+            k, v, w)
+    ub = u[None, :, :, None]
+    if chunk is None:
+        return _trip_loop(ub, state0, *xs)
+    Q = L.pick_block(r.shape[1], chunk)
+    return _block_loop(ub, (Q, L.pick_block(Q, SUB_CHUNK)), state0, *xs)
+
+
+def _trip_loop(ub: torch.Tensor, St: torch.Tensor, *xs: torch.Tensor):
+    """Every token of ``xs`` (rows, k, v, w), one trip each."""
+    n = xs[1].shape[1]
     if SCAN_HOOK is not None:
-        return SCAN_HOOK(_wkv_trip, S, state0, operands)
-    St = state0
+        return SCAN_HOOK(_wkv_trip, n, St, (*xs, ub))
     ys = []
-    for t in range(S):
-        y, St = _wkv_trip(t, St, *operands)
+    for t in range(n):
+        y, St = _wkv_trip(t, St, *xs, ub)
         ys.append(y)
     return torch.stack(ys, dim=1), St
 
 
+def _block_loop(ub: torch.Tensor, sizes: Tuple[int, ...], St: torch.Tensor,
+                *xs: torch.Tensor):
+    """The tokens of ``xs`` in blocks of ``sizes[0]``, each block's
+    loop (``sizes[1:]`` within it, then the trips) under a checkpoint.
+    Nothing in the loop depends on a mesh (whole heads of the rank's
+    batch block, no collective), so the recomputation needs none bound,
+    unlike ``transformer._remat``'s."""
+    if not sizes:
+        return _trip_loop(ub, St, *xs)
+    inner = functools.partial(_block_loop, ub, sizes[1:])
+
+    def body(state, *block):
+        # a recomputation runs the whole block, as the reference's does:
+        # stopping early (after the last sub-chunk's input state) would
+        # save a sub-chunk's trips, but would make the recomputation's
+        # work depend on what autograd saves, which the dry run's scaled
+        # loop cannot see
+        with set_checkpoint_early_stop(False):
+            return checkpoint(inner, state, *block, use_reentrant=False,
+                              preserve_rng_state=False)   # draws none
+
+    blocks = list(zip(*(x.split(sizes[0], ax)
+                        for x, ax in zip(xs, _TOKEN_AXES))))
+    if BLOCK_HOOK is not None:
+        return BLOCK_HOOK(body, St, blocks)
+    ys = []
+    for block in blocks:
+        y, St = body(St, *block)
+        ys.append(y)
+    return torch.cat(ys, dim=1), St
+
+
 def _wkv_trip(t: int, St: torch.Tensor, rows: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, w: torch.Tensor, ub: torch.Tensor):
-    """Token ``t`` of :func:`wkv_scan`: (y (B,H,K), the next state)."""
+    """Token ``t`` of a trip loop's operands: (y (B,H,K), the next
+    state)."""
     B, H, _, K = rows.shape
     kv = k[:, t, :, :, None] * v[:, t, :, None, :]         # (B,H,K,K)
     m = torch.addcmul(St, ub, kv)                          # S + u kv
@@ -182,7 +257,12 @@ def time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     w = torch.exp(-torch.exp(dec.float())).reshape(B, S, H, K)
     u = p["u"].reshape(H, K).float()
 
-    y, Sf = wkv_scan(r.float(), kk.float(), vv.float(), w, u, state0)
+    # under autograd the trips run in nested checkpointed chunks, as the
+    # reference's wkv_chunked runs them; serving and decode take the loop
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r, kk, vv, w, u, state0))
+    y, Sf = wkv_scan(r.float(), kk.float(), vv.float(), w, u, state0,
+                     chunk=cfg.ssm.chunk if grad else None)
     # per-head group norm, population variance as jnp.var
     mu = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, correction=0)

@@ -13,8 +13,9 @@ once, is bitwise equal too.  The attention kernels are held against theirs at th
 shapes and tolerances of ``repro_torch.kernels.cases`` (which
 ``chip_smoke.py`` uses too; its docstring gives the reasons): fp32
 within 2e-5 and bf16 within two bf16 steps of each element for flash
-attention (bf16 at D 64 and 128 on the tensor-core kernel, the rest,
-zamba2's D = 112 included, on the scalar one), 1e-4 on o and l and 1e-5
+attention (bf16 at D 64, 112 and 128 on the tensor-core kernel, zamba2's
+112 padded to 128 in shared memory, also on a slice of local heads and
+bitwise across launches; the rest on the scalar one), 1e-4 on o and l and 1e-5
 on m for the decode partials, whose two launches on the same inputs are
 bitwise equal.  The cluster on
 the card is held against the same cluster on the CPU: equal stats,
@@ -345,7 +346,7 @@ def test_flash_attention_strided_views(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 112, 128])
 def test_flash_attention_single_tile(cuda, D):
     """One CTA on one 128 x 128 tile, not causal: the first check of the
     tensor-core kernel's TMA swizzle and wgmma descriptors, which give
@@ -366,11 +367,12 @@ def test_flash_attention_single_tile(cuda, D):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,kind", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 112, "scalar"),
+    (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 112, "wgmma"),
     (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar")])
 def test_flash_attention_variant_launched(cuda, dtype, D, kind):
-    """bf16 at D in {64, 128} launches the tensor-core kernel, anything
-    else the scalar one: one launch, counted once, on the right kernel."""
+    """bf16 at D in {64, 112, 128} launches the tensor-core kernel,
+    anything else the scalar one: one launch, counted once, on the right
+    kernel."""
     q = torch.randn(1, 2, 40, D, device=cuda).to(dtype)
     ops.reset_launches()
     ops.flash_attention(q, q[:, :1], q[:, :1])
@@ -378,6 +380,39 @@ def test_flash_attention_variant_launched(cuda, dtype, D, kind):
     assert tfa.VARIANT_LAUNCHES == {"wgmma": int(kind == "wgmma"),
                                     "scalar": int(kind == "scalar")}
     assert ops.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [slice(None), slice(8, 16)])
+def test_flash_attention_d112_in_place_repeatable(cuda, heads):
+    """zamba2-7b's prefill attention (B 4, S 512, 32 heads of 112) on the
+    tensor-core kernel, read in place from the layers' (B, S, H, D)
+    tensors: all 32 heads, whose output rows run on into the next head's
+    (an epilogue that stored the padded columns 112-127 would overwrite
+    them, racing that head's CTA), and a rank's 8 local heads of
+    ``[mesh]`` (pointer offset 8 * 112 * 2 = 1792 bytes).  Each of three
+    launches holds the plain version within ``ATTN_TOL``, and all three
+    are bitwise equal."""
+    rng = np.random.RandomState(112)
+    B, S, H, D = 4, 512, 32, 112
+    q, k, v = (cases.randn(rng, (B, S, H, D), cuda, torch.bfloat16)[
+        :, :, heads].transpose(1, 2) for _ in range(3))
+    Hl = q.shape[1]
+    assert tfa.tma_strides("q", q) == [S * H * D, D, H * D]
+    assert q.data_ptr() - q.untyped_storage().data_ptr() == (
+        2 * D * (heads.start or 0))
+    want = tfa.flash_attention_plain(q, k, v).float()
+    atol, rtol = cases.ATTN_TOL[torch.bfloat16]
+    ops.reset_launches()
+    outs = []
+    for _ in range(3):
+        outs.append(ops.flash_attention(q, k, v))
+        torch.cuda.synchronize()
+        assert outs[-1].shape == (B, Hl, S, D)
+        torch.testing.assert_close(outs[-1].float(), want, atol=atol,
+                                   rtol=rtol)
+    assert tfa.VARIANT_LAUNCHES == {"wgmma": 3, "scalar": 0}
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
 
 
 @pytest.mark.cuda

@@ -13,9 +13,12 @@ its CLI, and the kernel wrappers' fake path.
   0's of a real 4-rank gloo CPU run.  The real runs place seeded values
   where the example arguments place meta blocks (``sharding.place_with``)
   and count each wrapper's calls; the counts do not depend on values.
-- rwkv6's scaled loop (two trips run, their cost standing for the rest)
-  against the full loop under the same dry run: flops and memory equal,
-  bytes within 0.1% (prefill) and 6% (train).
+- rwkv6's scaled loops (two bodies of each loop run, their cost
+  standing for the rest) against the full loops under the same dry run,
+  at 192 tokens in chunks of 64: a train step's three nested loops
+  (3 chunks, 4 sub-chunks a chunk, 16 trips a sub-chunk) and prefill's
+  one loop of 192 trips: flops and memory equal, bytes within 0.1%
+  (prefill) and 6% (train).
 - The CLI: the reference's file names, keys and console line,
   ``--skip-existing``, ``--dump-hlo`` refused, a skipped cell's reason.
 - The wrappers' fake path: fake operands give fake outputs of the
@@ -149,10 +152,12 @@ for arch in ARCHS:
             out[f"{arch}|{name}|{mesh[0]}x{mesh[1]}"] = {
                 "flops": rec["cost"]["flops"], "collectives": col,
                 "kernels": rec["kernels"]}
-# rwkv6's scaled loop against the full one
+# rwkv6's scaled loops against the full ones: 3 chunks of 4 sub-chunks
+import dataclasses
 cfg = cfg_of("rwkv6-3b")
+cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=64))
 for kind in ("prefill", "train") if sys.argv[4] == "scan" else ():
-    sh = ShapeConfig(kind, 64, 8, kind)
+    sh = ShapeConfig(kind, 192, 8, kind)
     for scaled in (False, True):
         rec = dryrun.run_cell("rwkv6-3b", kind, False, mesh_shape=(2, 2),
                               shape=sh, cfg=cfg, scale_loops=scaled)
@@ -171,10 +176,11 @@ def _env():
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dryrun_trace")
     args = [json.dumps(FAMILY_ARCHS), json.dumps(SHAPES)]
-    # the fake runs in two processes: the 1 x 1 mesh; the (2, 2) mesh and
-    # the scaled loop
+    # the fake runs in three processes: the 1 x 1 mesh; the (2, 2) mesh;
+    # the scaled loops
     cmds = [[sys.executable, "-c", FAKE, *args, "[[1, 1]]", ""],
-            [sys.executable, "-c", FAKE, *args, "[[2, 2]]", "scan"],
+            [sys.executable, "-c", FAKE, *args, "[[2, 2]]", ""],
+            [sys.executable, "-c", FAKE, *args, "[]", "scan"],
             [sys.executable, "-c", REAL, *args, "0", "1", str(d)]]
     cmds += [[sys.executable, "-c", REAL, *args, str(r), "4", str(d)]
              for r in range(4)]
@@ -186,8 +192,9 @@ def runs(tmp_path_factory):
         out, err = p.communicate(timeout=TIMEOUT_S)
         assert p.returncode == 0, err[-3000:]
         outs.append(out.strip().splitlines()[-1] if out.strip() else "")
-    fake = dict(json.loads(outs[0]), **json.loads(outs[1]))
-    one, four = json.loads(outs[2]), json.loads(outs[3])
+    fake = dict(json.loads(outs[0]), **json.loads(outs[1]),
+                **json.loads(outs[2]))
+    one, four = json.loads(outs[3]), json.loads(outs[4])
     return fake, one, four
 
 
@@ -216,7 +223,7 @@ def test_rwkv6_scaled_loop_matches_full(runs, kind):
     fake = runs[0]
     full, scaled = fake[f"scan|{kind}|False"], fake[f"scan|{kind}|True"]
     assert full[3] is None and scaled[3] == {
-        "loop": "models.rwkv6.wkv_scan", "trips": 64}
+        "loop": "models.rwkv6.wkv_scan", "trips": 192}
     assert scaled[0] == full[0]                   # flops
     assert scaled[2] == full[2]                   # temp bytes
     tol = 1e-3 if kind == "prefill" else 0.06

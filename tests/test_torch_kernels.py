@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels import embedding_bag as jeb
 from repro.kernels import ops as jops
@@ -328,13 +329,17 @@ def _tc_recipe(q, k, v, causal, split=True, tile=128):
     per 128-key tile with ``exp2`` and ``scale * log2(e)`` folded in,
     P = P_hi + P_lo in two bf16 terms (or, with ``split=False``, P
     rounded once to bf16), each P term times V summed in fp32, the
-    output rounded to bf16 once."""
+    output rounded to bf16 once.  A head dim that is no multiple of 64
+    (zamba2's 112) runs padded to whole 64-column atoms with zero
+    columns, as TMA fills them, at the true D's scale; the columns past
+    D are dropped, as the kernel's epilogue does not store them."""
     B, H, S, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     c = (torch.tensor(1.0 / math.sqrt(D))
          * torch.tensor(1.4426950408889634))             # fp32, as the card
-    qf = q.float().reshape(B, Hkv, H // Hkv, S, D)
-    kf, vf = k.float(), v.float()
+    pad = (0, -D % 64)
+    qf = F.pad(q.float(), pad).reshape(B, Hkv, H // Hkv, S, D + pad[1])
+    kf, vf = F.pad(k.float(), pad), F.pad(v.float(), pad)
     out = torch.empty_like(qf)
     for q0 in range(0, S, tile):
         q1 = min(q0 + tile, S)
@@ -359,7 +364,8 @@ def _tc_recipe(q, k, v, causal, split=True, tile=128):
                                                 vf[:, :, n0:n1])
                                    for t in terms)
         out[:, :, :, q0:q1] = acc / l.clamp(min=1e-37)
-    return out.reshape(B, H, S, D).bfloat16()
+    assert not out[..., D:].any()               # P V's padded columns
+    return out[..., :D].reshape(B, H, S, D).bfloat16()
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -387,7 +393,7 @@ def test_tensor_core_recipe_needs_p_split(B, H, Hkv, S, T, D, causal):
 @pytest.mark.parametrize("dtype,D,kind", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 16, "scalar"),
-    (torch.bfloat16, 112, "scalar"),          # zamba2-7b's shared block
+    (torch.bfloat16, 112, "wgmma"),           # zamba2-7b's shared block
     (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar")])
 def test_attention_variant_by_dtype_and_head_dim(dtype, D, kind):
     assert tfa.variant(dtype, D) == kind
