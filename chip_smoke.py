@@ -165,10 +165,10 @@ with a non-zero exit and no result line):
    (``head_dim_112``);
 14. train: (a) smollm-135m at its published widths, nothing cut, bf16,
    through ``launch.train.build`` -> ``run_train_loop`` (Adam at the
-   CLI's defaults, batch 8 x seq 2048, 40 steps, a checkpoint every 10
-   in a temp directory, a fault hook that raises once at step 25): the
-   fault fires once, the loop resumes from step 20, the latest
-   checkpoint is step 40, every logged loss is finite and the last is
+   CLI's defaults, batch 8 x seq 2048, 20 steps, a checkpoint every 8
+   in a temp directory, a fault hook that raises once at step 10): the
+   fault fires once, the loop resumes from step 8, the latest
+   checkpoint is step 20, every logged loss is finite and the last is
    below the first, and no kernel launches (the counters are zeroed just
    before and read just after: the loss takes the blocked jnp attention,
    the kernels have no backward); step ms (median and spread, leaving
@@ -196,8 +196,9 @@ with a non-zero exit and no result line):
    unchunked loop's saved states would take, printed beside the dry
    run's temp for the same cell on a 1 x 1 mesh;
 15. mesh: serving on a mesh of 4 rank processes on the one card
-   (``torch.multiprocessing`` spawn, a ``file://`` store, gloo: NCCL
-   refuses two ranks on one device; the parent draws each model's
+   (``torch.multiprocessing`` spawn, once for this phase and the next,
+   a ``file://`` store, gloo: NCCL refuses two ranks on one device; each
+   case is a run of jobs the ranks take from a queue; the parent draws each model's
    weights once and passes them by CUDA IPC, each rank clones only its
    blocks).  It prints the backend and its routes (DTensors move by
    c10d all-gathers and slices: DTensor's functional collectives crash
@@ -212,7 +213,7 @@ with a non-zero exit and no result line):
    and context parallelism) and qwen2-moe-a2.7b (16 heads, 64 padded
    experts: head-TP and EP) at their published widths on (1, 4) through
    ``build_program``'s prefill and decode fns (batch 8, prompt 1024,
-   2048 slots, 16 steps; batch 4, prompt 512, 1024 slots, 16 steps),
+   2048 slots, 8 steps; batch 4, prompt 512, 1024 slots, 8 steps),
    held against the same weights on one device before the ranks start:
    30 (24) decode launches a step on every rank, 3 of 4 at
    ``kv_offset`` > 0; qwen2-moe's 24 attention launches a prefill on
@@ -236,7 +237,7 @@ with a non-zero exit and no result line):
    slots) and zamba2-7b (81 layers: 14 Mamba heads and 8 attention
    heads a rank; batch 4, prompt 512, 1024 slots) on (1, 4), rwkv6-3b
    (32 layers, batch 2 a rank) on (2, 2), each at its published widths
-   in bf16, 4 steps, one spawn each with its fp32 copies (whisper 2 + 2
+   in bf16, 4 steps, one run each with its fp32 copies (whisper 2 + 2
    layers, once under head-TP and once under the FSDP rules, where the
    encoder and both decoder attentions run context parallelism; zamba2
    7; rwkv6 2): every rank's attention launches a prefill (whisper 96,
@@ -252,16 +253,16 @@ with a non-zero exit and no result line):
    not NVLink's times); the card's memory in use, the phase's time.  A
    rank that fails fails the phase through its exit code;
 16. mesh-train: training on the same kind of mesh (4 gloo rank
-   processes on the card, one spawn), each case held against one
+   processes on the card, the same ones, one run), each case held against one
    device's run of it from the same weights, computed by the parent
    before the ranks start (gradients kept in files on the host, read
    by each rank for its own blocks).  (a) smollm-135m at its published
    widths, nothing cut, bf16, on (data 2, model 2) (9 heads: FSDP over
    data, context parallelism and Megatron over model, the
    vocab-parallel embedding and CE, ZeRO-1 Adam over data) through
-   ``run_train_loop(mesh=, rules=)``: batch 8 x seq 1024, 8 steps (cut
-   from ``[train]``'s 2048 and 40 for the phase's time), a checkpoint
-   every 3, a fault at step 5: every logged loss within 2% of one
+   ``run_train_loop(mesh=, rules=)``: batch 8 x seq 1024, 5 steps (cut
+   from ``[train]``'s 2048 and 20 for the phase's time), a checkpoint
+   every 3, a fault at step 4 that replays step 3: every logged loss within 2% of one
    device's loop, the loss falls, no kernel launch; (b) its last
    checkpoint restored by ``elastic_restore`` onto
    ``healthy_mesh({"model": 2}, 0.4)`` (ranks 0 and 1 on (1, 2)): the
@@ -377,8 +378,8 @@ RECURRENT_FP32_LAYERS = 7
 #: the step whose hook raises once), RM1's cut rows, and the zoo's
 #: families at their published widths with their depth cut (zamba2: one
 #: group of 6 with its shared block and a tail of 1)
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 40
-TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 10, 25
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
+TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 8, 10
 TRAIN_RM1_ROWS = 10_000
 #: [train]'s rwkv6-3b step at train_4k's sequence: (layers, batch, tokens)
 TRAIN_RWKV6_LONG = (2, 1, 4096)
@@ -2012,8 +2013,8 @@ def flat_items(tree, path=""):
 
 def train_smollm(dev, card) -> None:
     """smollm-135m at full width through ``launch.train.build`` and
-    ``run_train_loop``: 40 steps, a checkpoint every 10, a fault at step
-    25 that restores step 20; step times, peak memory, one traced step."""
+    ``run_train_loop``: 20 steps, a checkpoint every 8, a fault at step
+    10 that restores step 8; step times, peak memory, one traced step."""
     import tempfile
 
     from repro_torch.kernels import ops
@@ -2070,7 +2071,7 @@ def train_smollm(dev, card) -> None:
     assert losses[-1] < losses[0], losses
     assert sum(launches.values()) == 0, launches
     # a step's interval: one "step" line to the next, leaving out those
-    # that hold a checkpoint save (after steps 9, 19, ...) or the fault
+    # that hold a checkpoint save (after steps 7, 15, ...) or the fault
     steps = []
     for (ta, ma), (tb, mb) in zip(lines, lines[1:]):
         if not (ma.startswith("step") and mb.startswith("step")):
@@ -2483,15 +2484,15 @@ def train_phase(dev, card) -> None:
 MESH_WORLD, MESH_TIMEOUT_S = 4, 180
 MESH_RM1_BATCH = 64
 #: arch -> (batch, prompt, cache slots, decode steps) on the (1, 4) mesh
-MESH_LM = {"smollm-135m": (LM_BATCH, LM_PROMPT, LM_CACHE, 16),
-           "qwen2-moe-a2.7b": (ZOO_BATCH, 512, 1024, ZOO_STEPS)}
+MESH_LM = {"smollm-135m": (LM_BATCH, LM_PROMPT, LM_CACHE, 8),
+           "qwen2-moe-a2.7b": (ZOO_BATCH, 512, 1024, 8)}
 #: the copies at full width, depth cut: (arch, dtype) -> (layers, batch,
 #: prompt, cache slots, decode steps)
 MESH_COPIES = {("smollm-135m", "float32"): (2, 8, 128, 256, 8),
                ("qwen2-moe-a2.7b", "float32"): (2, 4, 128, 256, 8),
                ("qwen2-moe-a2.7b", "bfloat16"): (2, 4, 512, 1024, 8)}
 #: the encoder-decoder and recurrent families at their published widths,
-#: bf16, one spawn of the ranks each: arch -> (model axis size, batch,
+#: bf16, one run of the ranks each: arch -> (model axis size, batch,
 #: prompt, cache slots, decode steps); whisper's prompt and slots are
 #: [zoo]'s, behind its 1500 frames; 4 decode steps, cut from [zoo]'s 16
 #: for the script's time (1.3 s a step on the mesh)
@@ -2503,7 +2504,7 @@ MESH_ZOO = {"whisper-large-v3": (4, ZOO_BATCH, 64, 256, 4),
 WHISPER_FSDP = {"heads": None, "kv_heads": None, "attn_din": ("data",),
                 "seq_sp": ("model",)}
 #: their fp32 copies at full width, depth cut as [zoo] and [recurrent]
-#: cut it (whisper 2 + 2 layers), in the same spawn as their arch:
+#: cut it (whisper 2 + 2 layers), in the same run as their arch:
 #: (arch, what) -> (layers, batch, prompt, cache slots, decode steps,
 #: prefill rule overrides)
 MESH_ZOO_COPIES = {
@@ -2632,11 +2633,12 @@ def hold_mesh(probe) -> list:
     return held
 
 
-def mesh_rank(rank: int, store: str, jobs, q) -> None:
-    """One rank of the [mesh] phase: joins the gloo group on cuda:0, runs
-    each (job, payload) of ``jobs`` in turn and puts (rank, results) on
-    ``q``.  A failure is not caught: the rank exits non-zero, and the
-    others fail at gloo's timeout."""
+def mesh_rank(rank: int, store: str, inq, q) -> None:
+    """One rank of the [mesh] and [mesh-train] phases: joins the gloo
+    group on cuda:0 and says so on ``q``; then, for each list of (job,
+    payload) that ``inq`` hands it, until None, runs each job in turn and
+    puts (rank, results) on ``q``.  A failure is not caught: the rank
+    exits non-zero, and the others fail at gloo's timeout."""
     import datetime
     import faulthandler
 
@@ -2648,19 +2650,25 @@ def mesh_rank(rank: int, store: str, jobs, q) -> None:
         world_size=MESH_WORLD,
         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     try:
-        results = []
-        for job, payload in jobs:
-            torch.cuda.reset_peak_memory_stats()
-            res = MESH_JOBS[job](rank, payload)
-            torch.cuda.synchronize()
-            res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            results.append(res)
-            # release the parent's tensors (CUDA IPC counts this rank's
-            # references, and a process that just exits may not drop them)
-            payload.clear()
-            gc.collect()
-            torch.cuda.empty_cache()
-        q.put((rank, results))
+        q.put((rank, None))
+        while (jobs := inq.get()) is not None:
+            results, got = [], time.time()
+            for job, payload in jobs:
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = MESH_JOBS[job](rank, payload)
+                torch.cuda.synchronize()
+                res["job_s"] = time.perf_counter() - t0
+                res["got"] = got
+                res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                results.append(res)
+                # release the parent's tensors (CUDA IPC counts this
+                # rank's references until they are dropped)
+                payload.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+            del jobs
+            q.put((rank, results))
     finally:
         dist.destroy_process_group()
 
@@ -2685,52 +2693,93 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def run_ranks(jobs, deadline_s: float = 2 * MESH_TIMEOUT_S):
-    """Spawns the ranks with ``jobs``, a list of (job, payload) (CUDA
-    tensors in a payload pass through CUDA IPC: each rank clones only
-    its own blocks), collects every rank's results and waits for its
-    exit; a rank that dies, or exits non-zero, or a spawn still running
-    after ``deadline_s``, fails the phase.  Returns (per job, the results
-    by rank; wall s)."""
-    import queue
-    import tempfile
+class RankPool:
+    """``MESH_WORLD`` rank processes on the one card, spawned once and
+    joined by a file:// store for both mesh phases: each ``run`` hands
+    every rank the same jobs (CUDA tensors in a payload pass through CUDA
+    IPC: each rank clones only its own blocks, and the parent holds them
+    until the results are in).  A rank that dies, or exits non-zero, or
+    a run still going after its deadline, fails the phase; leaving the
+    ``with`` block stops every rank."""
 
-    import torch.multiprocessing as mp
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        procs = [ctx.Process(target=mesh_rank, args=(
-            r, str(Path(d) / "store"), jobs, q)) for r in range(MESH_WORLD)]
-        for p in procs:
-            p.start()
+    def __init__(self, deadline_s: float = 2 * MESH_TIMEOUT_S):
+        import tempfile
+
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.q = ctx.Queue()
+        self.inqs = [ctx.Queue() for _ in range(MESH_WORLD)]
+        self.dir = tempfile.TemporaryDirectory()
+        t0 = time.perf_counter()
+        self.procs = [ctx.Process(target=mesh_rank, args=(
+            r, str(Path(self.dir.name) / "store"), self.inqs[r], self.q))
+            for r in range(MESH_WORLD)]
         try:
-            results = {}
-            deadline = time.monotonic() + deadline_s
-            while len(results) < MESH_WORLD:
-                try:
-                    rank, res = q.get(timeout=5)
-                    results[rank] = res
-                except queue.Empty:        # a poll: no result yet
-                    codes = [p.exitcode for p in procs]
-                    if (any(c not in (None, 0) for c in codes)
-                            or time.monotonic() > deadline):
-                        raise RuntimeError(
-                            f"[mesh] {[j for j, _ in jobs]}: rank exit "
-                            f"codes {codes}")
-            for p in procs:
-                p.join(timeout=60)
-            codes = [p.exitcode for p in procs]
-            assert codes == [0] * MESH_WORLD, codes
-        finally:
-            for p in procs:
+            for p in self.procs:
+                p.start()
+            self._collect("spawn", deadline_s)
+        except BaseException:
+            self.close(ok=False)
+            raise
+        log(f"[ranks] {MESH_WORLD} rank processes spawned and joined "
+            f"(gloo) in {time.perf_counter() - t0:.1f} s")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, kind, *exc):
+        self.close(ok=kind is None)
+
+    def _collect(self, what, deadline_s) -> dict:
+        import queue
+        results = {}
+        deadline = time.monotonic() + deadline_s
+        while len(results) < MESH_WORLD:
+            try:
+                rank, res = self.q.get(timeout=5)
+                results[rank] = res
+            except queue.Empty:            # a poll: no result yet
+                codes = [p.exitcode for p in self.procs]
+                if (any(c is not None for c in codes)
+                        or time.monotonic() > deadline):
+                    raise RuntimeError(
+                        f"[ranks] {what}: rank exit codes {codes}")
+        return results
+
+    def run(self, jobs, deadline_s: float = 2 * MESH_TIMEOUT_S):
+        """Runs ``jobs``, a list of (job, payload), on every rank.
+        Returns (per job, the results by rank; wall s)."""
+        t0, wall0 = time.perf_counter(), time.time()
+        for inq in self.inqs:
+            inq.put(jobs)
+        results = self._collect([j for j, _ in jobs], deadline_s)
+        per_job = [[results[r][i] for r in range(MESH_WORLD)]
+                   for i in range(len(jobs))]
+        wall_s = time.perf_counter() - t0
+        log(f"[ranks] jobs taken up {max(x['got'] for x in per_job[0]) - wall0:.1f}"
+            f" s after they were handed over; each job's slowest rank (s): "
+            f"{[(j, round(max(x['job_s'] for x in per), 1)) for (j, _), per in zip(jobs, per_job)]}"
+            f"; all back after {wall_s:.1f} s")
+        return per_job, wall_s
+
+    def close(self, ok: bool = True) -> None:
+        """Stops the ranks: after a failure at once, else once each has
+        left the group and exited 0."""
+        for p, inq in zip(self.procs, self.inqs):
+            if ok and p.is_alive():
+                inq.put(None)
+        codes = []
+        for p in self.procs:
+            if p.pid is not None:
+                if ok:
+                    p.join(timeout=60)
                 if p.is_alive():
                     p.kill()
                     p.join()
-                p.close()        # drops the process's hold on the payloads
-    per_job = [[results[r][i] for r in range(MESH_WORLD)]
-               for i in range(len(jobs))]
-    return per_job, time.perf_counter() - t0
+                codes.append(p.exitcode)
+            p.close()        # drops the process's hold on the payloads
+        self.dir.cleanup()
+        assert not ok or codes == [0] * MESH_WORLD, codes
 
 
 def card_used_gb() -> float:
@@ -3263,29 +3312,29 @@ def rm1_check(res, reqs, scores, card) -> list:
     return [x["launches"]["embedding_bag_fused_flat"] for x in res]
 
 
-def mesh_zoo(dev, card, lm) -> None:
-    """whisper-large-v3, zamba2-7b and rwkv6-3b, one spawn of the ranks
+def mesh_zoo(dev, card, lm, pool) -> None:
+    """whisper-large-v3, zamba2-7b and rwkv6-3b, one run of the ranks
     each, freed before the next: the arch at full width in bf16, then
     its fp32 copies; their launches go into ``lm``."""
     for arch in MESH_ZOO:
         cases = [zoo_mesh_case(arch, dev)] + [
             zoo_mesh_case(arch, dev, what)
             for a, what in MESH_ZOO_COPIES if a == arch]
-        per_job, wall_s = run_ranks([("lm", c["payload"]) for c in cases])
+        per_job, wall_s = pool.run([("lm", c["payload"]) for c in cases])
         log(f"[mesh] {[c['tag'] for c in cases]}: {MESH_WORLD} ranks "
-            f"spawned, served and joined in {wall_s:.1f} s")
+            f"served in {wall_s:.1f} s")
         for c, res in zip(cases, per_job):
             lm_check(c, res, card, lm)
         del cases, per_job, c, res
         free_card()
 
 
-def mesh_phase(dev, card, reqs, scores, rows) -> dict:
-    """Spawns of four rank processes on the one card: smollm-135m on
+def mesh_phase(dev, card, reqs, scores, rows, pool) -> dict:
+    """Runs of ``pool``'s four rank processes on the one card: smollm-135m on
     (1, 4), the 2-layer copies, then RM1 V0 on (data 2, model 2) and on the
     survivors of a failure; then qwen2-moe-a2.7b on (1, 4) alone (the
     parent's copy of its weights and the ranks' blocks hold 72 GB); then
-    whisper, zamba2 and rwkv6 with their copies, one spawn each
+    whisper, zamba2 and rwkv6 with their copies, one run each
     (``mesh_zoo``).  Returns rank 0's results of smollm-135m at full
     width (with its batch ``B`` and slots ``T``) for ``[dryrun]``."""
     from repro_torch.configs import rm1
@@ -3309,9 +3358,9 @@ def mesh_phase(dev, card, reqs, scores, rows) -> dict:
     jobs = [("lm", c["payload"]) for c in cases] + [("rm1", {
         "cfg": cfg, "params": DLRMModel(cfg).init(0, device=dev),
         "reqs": reqs, "batch": MESH_RM1_BATCH, "dev": dev})]  # [serve]'s
-    per_job, wall_s = run_ranks(jobs)
+    per_job, wall_s = pool.run(jobs)
     log(f"[mesh] {[c['tag'] for c in cases] + ['rm1']}: {MESH_WORLD} ranks "
-        f"spawned, served and joined in {wall_s:.1f} s")
+        f"served in {wall_s:.1f} s")
     for c, res in zip(cases, per_job):
         lm_check(c, res, card, lm)
     smollm_rank0 = dict(per_job[0][0], B=cases[0]["B"], T=cases[0]["T"])
@@ -3320,13 +3369,12 @@ def mesh_phase(dev, card, reqs, scores, rows) -> dict:
     free_card()
 
     case = lm_case("qwen2-moe-a2.7b", dev)
-    (res,), wall_s = run_ranks([("lm", case["payload"])])
-    log(f"[mesh] {case['tag']}: {MESH_WORLD} ranks spawned, served and "
-        f"joined in {wall_s:.1f} s")
+    (res,), wall_s = pool.run([("lm", case["payload"])])
+    log(f"[mesh] {case['tag']}: {MESH_WORLD} ranks served in {wall_s:.1f} s")
     lm_check(case, res, card, lm)
     del case, res
     free_card()
-    mesh_zoo(dev, card, lm)
+    mesh_zoo(dev, card, lm, pool)
     for row in rows:
         if row["name"] == "embedding_bag_fused_flat":
             row["mesh_launches"] = launches
@@ -3340,7 +3388,7 @@ def mesh_phase(dev, card, reqs, scores, rows) -> dict:
 # ---------------------------------------------------------- mesh-train
 #: [mesh-train] (a): smollm-135m's loop on (data 2, model 2): batch x
 #: seq, steps, checkpoint period, the step whose hook raises once
-MT_BATCH, MT_SEQ, MT_STEPS, MT_CKPT_EVERY, MT_FAULT_AT = 8, 1024, 8, 3, 5
+MT_BATCH, MT_SEQ, MT_STEPS, MT_CKPT_EVERY, MT_FAULT_AT = 8, 1024, 5, 3, 4
 #: each logged loss of the mesh against one device's (relative), and (b)
 MT_LOSS_RTOL = 0.02
 #: (c) the fp32 copies at full width: arch -> (layers, batch, seq)
@@ -3615,11 +3663,13 @@ def mt_copy_rank(rank: int, p) -> dict:
     model = registry.build(cfg)
     mesh = make_host_mesh(2, device=dev)
     rules = registry.make_rules(cfg, mesh, "train")
+    t0 = time.perf_counter()
     placed = placed_from_files(p["weights"], model, mesh, rules, dev)
     with shd.use_mesh(mesh, rules):
         state = opt_mod.init_state(ocfg, placed, opt_mod.state_specs(
             ocfg, model.param_specs(), model.param_shapes()))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in p["batch"].items()}
+    place_s = time.perf_counter() - t0
     dist.barrier()
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -3635,7 +3685,9 @@ def mt_copy_rank(rank: int, p) -> dict:
         opt_mod.apply_updates(ocfg, placed, grads, state)
     torch.cuda.synchronize()
     out = {"coord": mesh.get_coordinate(), "loss": float(loss),
-           "aux": float(aux), "vg_s": vg_s, "card_gb": card_used_gb(),
+           "aux": float(aux), "vg_s": vg_s, "place_s": place_s,
+           "step_s": time.perf_counter() - t0 - vg_s,
+           "card_gb": card_used_gb(),
            "launches": sum(ops.LAUNCHES.values()),
            "allreduce_bytes": grad_allreduce_bytes(placed)}
     wdir, clip = Path(p["witness"]), torch.tensor(p["clip"], device=dev)
@@ -3852,6 +3904,7 @@ def mt_copy_case(arch, dev, tmp: Path, card) -> dict:
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_loop import value_and_grad
 
+    t0 = time.perf_counter()
     layers, B, S = MT_COPIES[arch]
     cfg = configs.get_config(arch).replace(
         num_layers=layers, dtype="float32", param_dtype="float32")
@@ -3899,7 +3952,8 @@ def mt_copy_case(arch, dev, tmp: Path, card) -> dict:
         f"{' + ' + str(layers) if cfg.encdec else ''} at full "
         f"width, batch {B} x seq {S}: one device's loss {float(loss):.6f}, "
         f"aux {float(aux):.6f}, grad norm {float(gnorm):.6f}, clip "
-        f"{float(clip):.6f}{checked}; {card}")
+        f"{float(clip):.6f}{checked}; the witness and its files took "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
     out = {"arch": arch, "loss": float(loss), "aux": float(aux),
            "payload": {"cfg": cfg, "weights": str(tmp / arch / "weights"),
                        "dev": dev, "batch": batch, "witness": str(wdir),
@@ -4038,7 +4092,9 @@ def mt_check_copy(case, res, card) -> None:
             f"{x['aux']:.6f} ({case['aux']:.6f}); worst leaf, max |err| "
             f"over its largest |x|: " + ", ".join(
                 f"{k} {v:.3g} ({p})" for k, (v, p) in x["worst"].items())
-            + f"; value_and_grad {x['vg_s'] * 1e3:.1f} ms; gradient "
+            + f"; blocks read from files in {x['place_s']:.1f} s, "
+            f"value_and_grad {x['vg_s'] * 1e3:.1f} ms, the rest of the "
+            f"step {x['step_s']:.1f} s, the job {x['job_s']:.1f} s; gradient "
             f"all-reduce payload {x['allreduce_bytes'] / 1e6:.1f} MB; peak "
             f"{x['peak_gb']:.3f} GB, the card {x['card_gb']:.2f} GB in use; "
             f"{card}")
@@ -4066,12 +4122,12 @@ def mt_check_rm1(case, res, card) -> None:
             f"GB, the card {x['card_gb']:.2f} GB in use; {card}")
 
 
-def mesh_train_phase(dev, card) -> None:
+def mesh_train_phase(dev, card, pool) -> None:
     """Training on a mesh of 4 rank processes on the one card (gloo, as
     in [mesh]).  Cases and cuts: (a) smollm-135m at its published
     widths, nothing cut, bf16, on (data 2, model 2): batch 8 x seq 1024
-    and 8 steps (cut from [train]'s 2048 and 40 for the phase's time),
-    a checkpoint every 3, a fault at step 5; (b) its checkpoint restored
+    and 5 steps (cut from [train]'s 2048 and 20 for the phase's time),
+    a checkpoint every 3, a fault at step 4; (b) its checkpoint restored
     onto the 2 survivors; (c) fp32 copies at full width, depth cut to 2
     layers: smollm at batch 4 x 256, qwen2-moe-a2.7b at batch 2 x 256
     and capacity factor 8.0, whisper (2 + 2), zamba2 (7) and rwkv6 (2)
@@ -4101,9 +4157,8 @@ def mesh_train_phase(dev, card) -> None:
         jobs = ([("train_lm", lm["payload"])]
                 + [("train_copy", c["payload"]) for c in copies]
                 + [("train_rm1", rm["payload"])])
-        per_job, wall_s = run_ranks(jobs, deadline_s=600)
-        log(f"[mesh-train] {MESH_WORLD} ranks spawned, trained and joined "
-            f"in {wall_s:.1f} s")
+        per_job, wall_s = pool.run(jobs, deadline_s=600)
+        log(f"[mesh-train] {MESH_WORLD} ranks trained in {wall_s:.1f} s")
         mt_check_lm(lm, per_job[0], card)
         del jobs
         free_card()
@@ -4357,11 +4412,10 @@ def main() -> int:
     # -------------------------------------------------------------- train
     train_phase(dev, card)
 
-    # --------------------------------------------------------------- mesh
-    smollm_rank0 = mesh_phase(dev, card, reqs, scores, rows)
-
-    # --------------------------------------------------------- mesh-train
-    mesh_train_phase(dev, card)
+    # ----------------------------------------------- mesh and mesh-train
+    with RankPool() as pool:
+        smollm_rank0 = mesh_phase(dev, card, reqs, scores, rows, pool)
+        mesh_train_phase(dev, card, pool)
 
     # ------------------------------------------------------------- dryrun
     dryrun_phase(smollm_rank0, card)
